@@ -6,12 +6,13 @@ sm_90a), nvcc and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from `stereo_matchin_tpu_torch/csrc`,
+It builds the CUDA kernels K1-K8 from `stereo_matchin_tpu_torch/csrc`,
 holds each against its plain PyTorch version on the card, drives the ASW
-pipeline at REFERENCE_CONFIG on the committed fixture pair through the
-kernels and through the plain ops, checks the launch counts and the
-output against the JAX package's stored result, and times both paths.
-Any failed check raises; the last line of a passing run is
+and the cross-based pipelines at REFERENCE_CONFIG on the committed
+fixture pair through the kernels and through the plain ops, checks the
+launch counts of each path and its output against the JAX package's
+stored results, times both routes of both paths, and runs the `run` CLI
+on PNG files.  Any failed check raises; the last line of a passing run is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -34,10 +35,12 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "asw_torch_fixture.npz"
+CROSS_FIXTURE = ROOT / "tests" / "data" / "cross_torch_fixture.npz"
 CSRC = "stereo_matchin_tpu_torch/csrc"
 TPU_KERNELS = "stereo_matchin_tpu/kernels"
-# One entry per TPU kernel on the ASW path: (name, CUDA source, replaced
-# pallas_call site, launch counter).
+# One entry per CUDA kernel: (name, CUDA source, replaced pallas_call
+# site(s), launch counter).  K1-K4 run on the ASW path, K5-K8 on the cross
+# path.
 KERNELS = [
     ("asw_den", f"{CSRC}/asw_aggregation.cu",
      f"{TPU_KERNELS}/asw_aggregation_dres.py:319", "asw_den"),
@@ -49,6 +52,19 @@ KERNELS = [
      f"{TPU_KERNELS}/wta_gather.py:314", "two_min"),
     ("wta_diag", f"{CSRC}/wta_gather.cu",
      f"{TPU_KERNELS}/wta_gather.py:426", "wta_diag"),
+    ("cross_arms", f"{CSRC}/cross_oii.cu",
+     f"{TPU_KERNELS}/cross_oii.py:629", "cross_arms"),
+    ("sad_volume", f"{CSRC}/sad_volume.cu",
+     f"{TPU_KERNELS}/sad_volume.py:120", "sad_volume"),
+    ("oii_pass_h", f"{CSRC}/cross_oii.cu",
+     f"{TPU_KERNELS}/cross_oii.py:235; {TPU_KERNELS}/cross_oii.py:420",
+     "oii_pass_h"),
+    ("oii_pass_v", f"{CSRC}/cross_oii.cu",
+     f"{TPU_KERNELS}/cross_oii.py:300", "oii_pass_v"),
+    ("vote_h", f"{CSRC}/cross_oii.cu",
+     f"{TPU_KERNELS}/cross_oii.py:814", "vote_h"),
+    ("vote_v", f"{CSRC}/cross_oii.cu",
+     f"{TPU_KERNELS}/cross_oii.py:853", "vote_v"),
 ]
 
 
@@ -126,6 +142,19 @@ def random_pair(rng, H, W):
     codes = rng.integers(0, 256, (2, H, W, 3), dtype=np.uint8)
     imgs = (codes / np.float32(255.0)).astype(np.float32)
     return torch.from_numpy(imgs[0]).cuda(), torch.from_numpy(imgs[1]).cuda()
+
+
+def scene_pair(seed, H, W, d_max):
+    """A synthetic scene (textured planes: arms of every length), on the
+    card."""
+    import torch
+
+    from stereo_matchin_tpu.eval import synthetic_scene
+
+    left, right, _, _ = synthetic_scene(np.random.default_rng(seed), H, W,
+                                        d_max)
+    return tuple(torch.from_numpy(a.astype(np.float32)).cuda()
+                 for a in (left, right))
 
 
 def aggregation_strips(left, right, cfg):
@@ -226,6 +255,105 @@ def time_kernels(left, right, cfg, stats):
               f"T={2 * R + 1})")
 
 
+def cross_inputs(left, right, cfg, D=None, d0=0):
+    """The cross path's kernel inputs, by the plain ops: median-filtered
+    pair, its arms, the SAD volume of D planes from d0 and the h-pass
+    result."""
+    from stereo_matchin_tpu_torch import ops
+
+    D = cfg.num_disp if D is None else D
+    L = cfg.arm_len
+    ml, mr = ops.median3x3(left), ops.median3x3(right)
+    al, ar = (ops.cross_arms(m, L, cfg.tau, cfg.legacy_cross_arm_quirk)
+              for m in (ml, mr))
+    cost = ops.sad_cost_volume(ml, mr, D, 1.0, d0)
+    temp = ops.oii_pass_plain(cost, al, ar, L, 2, d0)
+    return ml, mr, al, ar, cost, temp
+
+
+def check_cross_kernels(pairs, cfg, stats):
+    """K5-K8 against their plain versions on the card."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import cross_oii as kc
+    from stereo_matchin_tpu_torch.kernels.sad_volume import sad_volume
+
+    L, q = cfg.arm_len, cfg.legacy_cross_arm_quirk
+    rng = np.random.default_rng(11)
+    for label, (left, right) in pairs.items():
+        H, W = left.shape[:2]
+        # (num_disp, d0): the main path's planes, and a chunk at an offset
+        # that is no multiple of 8.
+        for D, d0 in ((cfg.num_disp, 0), (57, 5)):
+            tag = f"{label} D={D} d0={d0}"
+            ml, mr, al, ar, cost, temp = cross_inputs(left, right, cfg, D, d0)
+            if d0 == 0:
+                for side, m in (("left", ml), ("right", mr)):
+                    compare(f"cross_arms {label} {side}",
+                            [kc.cross_arms(m, L, cfg.tau, q)],
+                            [ops.cross_arms(m, L, cfg.tau, q)],
+                            stats["cross_arms"])
+            compare(f"sad_volume {tag}", [sad_volume(ml, mr, D, 1.0, d0)],
+                    [cost], stats["sad_volume"])
+            compare(f"oii_pass_h {tag}", [kc.oii_pass(cost, al, ar, L, 2, d0)],
+                    [temp], stats["oii_pass_h"])
+            compare(f"oii_pass_v {tag}", [kc.oii_pass(temp, al, ar, L, 1, d0)],
+                    [ops.oii_pass_plain(temp, al, ar, L, 1, d0)],
+                    stats["oii_pass_v"])
+        # The vote on the path's own initial map, and on random bins of
+        # d_max 300 (bins above 256).
+        aggr = ops.oii_pass_plain(temp, al, ar, L, 1)
+        initial = ops.disparity_to_image(ops.wta_argmin(aggr), cfg.d_max)
+        big = torch.from_numpy(rng.integers(241, 301, (H, W)).astype(
+            np.int32)).cuda()
+        for tag, idx, D in (("path", ops.vote_indices(initial, cfg.d_max),
+                             cfg.num_disp), ("d_max=300", big, 301)):
+            rc = ops.vote_counts_plain(idx, al, D, L)
+            compare(f"vote_h {label} {tag}", [kc.vote_h(idx, al, D, L)], [rc],
+                    stats["vote_h"])
+            compare(f"vote_v {label} {tag}", [kc.vote_v(rc, al, L)],
+                    [ops.vote_mode_plain(rc, al, L)], stats["vote_v"])
+    torch.cuda.synchronize()
+
+
+def time_cross_kernels(left, right, cfg, stats):
+    """K5-K8 and plain-version device times at the cross path's shapes."""
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import cross_oii as kc
+    from stereo_matchin_tpu_torch.kernels.sad_volume import sad_volume
+
+    D, L, tau, q = cfg.num_disp, cfg.arm_len, cfg.tau, cfg.legacy_cross_arm_quirk
+    ml, mr, al, ar, cost, temp = cross_inputs(left, right, cfg)
+    aggr = ops.oii_pass_plain(temp, al, ar, L, 1)
+    idx = ops.vote_indices(ops.disparity_to_image(ops.wta_argmin(aggr),
+                                                  cfg.d_max), cfg.d_max)
+    rc = ops.vote_counts_plain(idx, al, D, L)
+    cases = {
+        "cross_arms": (lambda: kc.cross_arms(ml, L, tau, q),
+                       lambda: ops.cross_arms(ml, L, tau, q)),
+        "sad_volume": (lambda: sad_volume(ml, mr, D),
+                       lambda: ops.sad_cost_volume(ml, mr, D)),
+        "oii_pass_h": (lambda: kc.oii_pass(cost, al, ar, L, 2),
+                       lambda: ops.oii_pass_plain(cost, al, ar, L, 2)),
+        "oii_pass_v": (lambda: kc.oii_pass(temp, al, ar, L, 1),
+                       lambda: ops.oii_pass_plain(temp, al, ar, L, 1)),
+        "vote_h": (lambda: kc.vote_h(idx, al, D, L),
+                   lambda: ops.vote_counts_plain(idx, al, D, L)),
+        "vote_v": (lambda: kc.vote_v(rc, al, L),
+                   lambda: ops.vote_mode_plain(rc, al, L)),
+    }
+    for name, (kern, plain) in cases.items():
+        p1 = cuda_ms(plain, 5)
+        k1 = cuda_ms(kern, 20)
+        k2 = cuda_ms(kern, 20)
+        p2 = cuda_ms(plain, 5)
+        stats[name]["ms"] = min(k1, k2)
+        stats[name]["plain_ms"] = min(p1, p2)
+        print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms  (D={D}, {left.shape[0]}x{left.shape[1]}, L={L})")
+
+
 def codes(img):
     from stereo_matchin_tpu_torch import ops
 
@@ -254,7 +382,7 @@ def main() -> int:
 
     from stereo_matchin_tpu_torch import REFERENCE_CONFIG, kernels
     from stereo_matchin_tpu_torch.kernels import _build
-    from stereo_matchin_tpu_torch.models import asw
+    from stereo_matchin_tpu_torch.models import asw, cross_based
 
     phase("2. build")
     t0 = time.perf_counter()
@@ -288,6 +416,7 @@ def main() -> int:
     want = {"asw_den": 2, "asw_pass_v": cfg.r_iters,
             "asw_pass_h": cfg.r_iters, "two_min": cfg.k_iters + 1,
             "wta_diag": cfg.k_iters + 1}
+    want.update(dict.fromkeys(kernels.CROSS_KERNELS, 0))
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if dict(kernels.LAUNCHES) != launches:
@@ -337,32 +466,97 @@ def main() -> int:
               f"({', '.join(f'{x:.2f}' for x in v)}) at REFERENCE_CONFIG "
               f"{H}x{W} on {smi}")
 
-    phase("7. run CLI on PNG files")
+    phase("7. cross kernels against their plain versions on the card")
+    cross_pairs = {"288x384 fixture": (left, right),
+                   "375x450 synthetic": scene_pair(3, 375, 450, cfg.d_max)}
+    check_cross_kernels(cross_pairs, cfg, stats)
+    time_cross_kernels(left, right, cfg, stats)
+
+    phase("8. cross slice at REFERENCE_CONFIG: kernels against plain ops")
+    kernels.reset_launches()
+    cross_k = cross_based.cross_pipeline(left, right, cfg)
+    torch.cuda.synchronize()
+    cross_launches = dict(kernels.LAUNCHES)
+    taps = cfg.replace(oii_impl="taps")
+    cross_p = cross_based.cross_pipeline(left, right, taps)
+    torch.cuda.synchronize()
+    print(f"  launches in one frame: {cross_launches}")
+    want = dict.fromkeys(kernels.ASW_KERNELS, 0)
+    want.update(cross_arms=2, sad_volume=1, oii_pass_h=1, oii_pass_v=1,
+                vote_h=1, vote_v=1)
+    if cross_launches != want:
+        raise AssertionError(f"launch counts {cross_launches} != {want}")
+    if dict(kernels.LAUNCHES) != cross_launches:
+        raise AssertionError("the plain path launched a kernel")
+    for f in ("initial", "final", "median_left"):
+        k, p = getattr(cross_k, f), getattr(cross_p, f)
+        shape = (H, W, 3) if f == "median_left" else (H, W)
+        if k.shape != shape or not torch.isfinite(k).all():
+            raise AssertionError(f"{f}: bad output {tuple(k.shape)}")
+        ulp = max_ulp(k, p)
+        print(f"  {f}: max ulp {ulp} between the kernel and plain paths")
+        if ulp:
+            raise AssertionError(f"{f}: kernel and plain paths differ")
+
+    phase("9. cross slice against the JAX package's stored output")
+    cfx = np.load(CROSS_FIXTURE)
+    got = {"initial": codes(cross_k.initial), "final": codes(cross_k.final),
+           "median_left": codes(cross_k.median_left)}
+    for f, c in got.items():
+        frac = float((c == cfx[f]).mean())
+        print(f"  {f}: {frac * 100:.4f}% codes equal to JAX")
+        if f == "initial" and frac < 0.995:
+            raise AssertionError(f"initial agrees with JAX on only "
+                                 f"{frac * 100:.3f}% of pixels")
+
+    phase("10. cross warm per-frame time (host clock around synchronized "
+          "frames)")
+    cross_ms = {"kernels": [], "plain": []}
+    for mode in ("plain", "kernels", "kernels", "plain") * 4:
+        c = cfg if mode == "kernels" else taps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cross_based.cross_pipeline(left, right, c)
+        torch.cuda.synchronize()
+        cross_ms[mode].append((time.perf_counter() - t0) * 1e3)
+    for mode, v in cross_ms.items():
+        print(f"  {mode}: median {statistics.median(v):.2f} ms per frame "
+              f"({', '.join(f'{x:.2f}' for x in v)}) at REFERENCE_CONFIG "
+              f"{H}x{W} on {smi}")
+
+    phase("11. run CLI (--method both) on PNG files")
     if importlib.util.find_spec("PIL") is None:
-        print("  skipped: no PNG codec here (PIL is not installed and the "
-              "native runtime codec is not built)")
-    else:
-        from stereo_matchin_tpu.io import png
-        from stereo_matchin_tpu_torch.__main__ import main as cli
+        raise AssertionError("no PNG codec: PIL is not installed")
+    from stereo_matchin_tpu.io import png
+    from stereo_matchin_tpu_torch.__main__ import main as cli
 
-        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-            tmp = pathlib.Path(tmp)
-            png.write_rgb(tmp / "l.png", fx["left"])
-            png.write_rgb(tmp / "r.png", fx["right"])
-            (tmp / "pics.txt").write_text(f"{tmp / 'l.png'}\n{tmp / 'r.png'}\n")
-            rc = cli(["run", "--pics", str(tmp / "pics.txt"), "--out",
-                      str(tmp / "out"), "--device", "cuda"])
-            got = png.read_gray(str(tmp / "out" / tmp.name /
-                                    "asw_disparity.png"))
-            if rc != 0 or not np.array_equal(
-                    np.rint(got * 255).astype(np.uint8),
-                    codes(res_k.disparity)):
-                raise AssertionError("CLI disparity PNG differs from the slice")
-            print("  asw_disparity.png equals the slice's disparity codes")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = pathlib.Path(tmp)
+        png.write_rgb(tmp / "l.png", fx["left"])
+        png.write_rgb(tmp / "r.png", fx["right"])
+        (tmp / "pics.txt").write_text(f"{tmp / 'l.png'}\n{tmp / 'r.png'}\n")
+        rc = cli(["run", "--pics", str(tmp / "pics.txt"), "--out",
+                  str(tmp / "out"), "--device", "cuda"])
+        out = tmp / "out" / tmp.name
+        if rc != 0:
+            raise AssertionError(f"CLI exited with {rc}")
+        for name, want in (("asw_disparity.png", codes(res_k.disparity)),
+                           ("cross_based_initial.png", got["initial"]),
+                           ("cross_based_disparity.png", got["final"])):
+            if not np.array_equal(codes(torch.from_numpy(
+                    png.read_gray(str(out / name)))), want):
+                raise AssertionError(f"CLI {name} differs from the slice")
+            print(f"  {name} equals the slice's codes")
+        if not np.array_equal(codes(torch.from_numpy(
+                png.read_rgb(str(out / "median.png")))), got["median_left"]):
+            raise AssertionError("CLI median.png differs from the slice")
+        print("  median.png equals the slice's median-filtered left image")
 
+    main_path = {**{k: launches[k] for k in kernels.ASW_KERNELS},
+                 **{k: cross_launches[k] for k in kernels.CROSS_KERNELS}}
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[key],
+         "launches": main_path[key],
          "max_abs_err": stats[key]["max_abs_err"],
          "ms": stats[key]["ms"], "plain_ms": stats[key]["plain_ms"]}
         for name, source, replaces, key in KERNELS]}

@@ -8,7 +8,8 @@ Layering, module for module as in the JAX package:
   ops       — plain PyTorch ops, (D, H, W) / (T, H, W) layouts
   kernels   — hand-written CUDA kernels for Hopper (csrc/*.cu), built by
               nvcc at first use and bound with ctypes
-  models    — the ASW pipeline end to end (models.asw)
+  models    — the ASW and cross-based pipelines end to end
+              (models.asw, models.cross_based)
   convert   — carries the JAX package's weight strips into the port
 """
 

@@ -1,9 +1,13 @@
-"""Hand-written CUDA kernels for the ASW path (Hopper, sm_90a).
+"""Hand-written CUDA kernels for the ASW and cross paths (Hopper, sm_90a).
 
   K1 asw_aggregation.asw_den   — aggregation denominator
   K2 asw_aggregation.asw_pass  — one vertical or horizontal aggregation pass
   K3 wta_gather.two_min        — reference-view two-min WTA
   K4 wta_gather.wta_diag       — target-view epipolar two-min WTA
+  K5 cross_oii.cross_arms      — adaptive cross arms
+  K6 sad_volume.sad_volume     — SAD cost volume
+  K7 cross_oii.oii_pass        — one horizontal or vertical OII windowed mean
+  K8 cross_oii.vote_h / vote_v — histogram vote: row counts, then the mode
 
 Sources live in `csrc/`; `_build.library()` compiles them with nvcc at
 first use.  Each wrapper takes its plain PyTorch version for a CPU tensor
@@ -17,9 +21,12 @@ from __future__ import annotations
 import torch
 
 # Launch count per kernel, incremented only where the kernel is launched
-# (never on the plain CPU route); asw_pass counts its two axes apart.
-LAUNCHES = {"asw_den": 0, "asw_pass_v": 0, "asw_pass_h": 0, "two_min": 0,
-            "wta_diag": 0}
+# (never on the plain CPU route); asw_pass and oii_pass count their two
+# axes apart.
+ASW_KERNELS = ("asw_den", "asw_pass_v", "asw_pass_h", "two_min", "wta_diag")
+CROSS_KERNELS = ("cross_arms", "sad_volume", "oii_pass_h", "oii_pass_v",
+                 "vote_h", "vote_v")
+LAUNCHES = dict.fromkeys(ASW_KERNELS + CROSS_KERNELS, 0)
 
 
 def reset_launches() -> None:
@@ -41,6 +48,24 @@ def use_kernels(mode: str, tensor: torch.Tensor) -> bool:
                              f"the input lies on {tensor.device}")
         return True
     raise ValueError(f"kernels must be 'auto', 'jnp' or 'pallas', got {mode!r}")
+
+
+def oii_route(impl: str, tensor: torch.Tensor) -> str:
+    """Route for StereoConfig.oii_impl on the cross path: "taps" and
+    "prefix" -> those plain ops everywhere; "auto" -> "kernels" on CUDA
+    tensors and "taps" (the kernels' sum order) elsewhere; "pallas" ->
+    "kernels", which need CUDA tensors."""
+    if impl in ("taps", "prefix"):
+        return impl
+    if impl == "auto":
+        return "kernels" if tensor.device.type == "cuda" else "taps"
+    if impl == "pallas":
+        if tensor.device.type != "cuda":
+            raise ValueError("oii_impl='pallas' demands the CUDA kernels, "
+                             f"but the input lies on {tensor.device}")
+        return "kernels"
+    raise ValueError("oii_impl must be 'auto', 'taps', 'prefix' or 'pallas', "
+                     f"got {impl!r}")
 
 
 def check_tensor(name: str, t: torch.Tensor, shape, dtype=torch.float32,

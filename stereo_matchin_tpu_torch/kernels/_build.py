@@ -1,10 +1,11 @@
 """Build `csrc/*.cu` with nvcc at first use and load it with ctypes.
 
-The sources have a plain C interface (no PyTorch headers), so one nvcc
-call builds them all in seconds.  The library lands in the package's
-`_build/` directory under a name that carries a hash of the sources and
-flags; it is written to a temporary file and renamed, so concurrent first
-users never load a half-written library.
+The sources have a plain C interface (no PyTorch headers): one nvcc per
+source compiles them all at once, in parallel, and one more links the
+objects into a shared library in seconds.  The library lands in the
+package's `_build/` directory under a name that carries a hash of the
+sources and flags; it is built in a temporary directory and renamed, so
+concurrent first users never load a half-written library.
 
 --fmad=false keeps every a*b + c as two roundings, like PyTorch's eager
 ops, so each kernel can equal its plain PyTorch version bit for bit.
@@ -25,7 +26,8 @@ PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-shared",)
 
 
 def nvcc_path() -> str:
@@ -45,11 +47,26 @@ def sources() -> list[pathlib.Path]:
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libstereo_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Start every command at once, wait for all, raise on any failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def build() -> pathlib.Path:
@@ -58,18 +75,14 @@ def build() -> pathlib.Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmp, path.name)
+        _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, path)
     return path
 
 

@@ -1,0 +1,145 @@
+"""Wrappers of the CUDA cross-method kernels in csrc/cross_oii.cu: K5
+(`cross_arms`), K7 (`oii_pass`) and K8 (`vote_h`, `vote_v`).
+
+They replace cross_arms_pallas, oii_hpass_pallas / oii_hpass_pallas_t /
+oii_vpass_pallas and histogram_vote_pallas
+(stereo_matchin_tpu/kernels/cross_oii.py).  The plain versions are
+ops/cross.py `cross_arms`, ops/oii.py `oii_pass_plain` and ops/vote.py
+`vote_counts_plain` / `vote_mode_plain`: a CPU tensor takes them, a CUDA
+tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import LAUNCHES, check_tensor, raise_on_error, require_cuda
+from ._build import library
+from ..ops.cross import cross_arms as cross_arms_plain
+from ..ops.oii import oii_pass_plain
+from ..ops.vote import _check_arm_len, vote_counts_plain, vote_mode_plain
+
+
+@functools.cache
+def _lib():
+    lib = library()
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.cross_arms_f32.argtypes = [p, p, i, i, i, i, f, p]
+    lib.oii_pass_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.vote_h_u8.argtypes = [p, p, p, i, i, i, i, p]
+    lib.vote_v_i32.argtypes = [p, p, p, i, i, i, i, p]
+    for fn in (lib.cross_arms_f32, lib.oii_pass_f32, lib.vote_h_u8,
+               lib.vote_v_i32):
+        fn.restype = i
+    return lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_arms(name: str, arms: torch.Tensor, H: int, W: int, device):
+    check_tensor(name, arms, (4, H, W), dtype=torch.int32, device=device)
+
+
+def cross_arms(img: torch.Tensor, arm_len: int = 25, tau: float = 0.10,
+               legacy_quirk: bool = True) -> torch.Tensor:
+    """K5: img (H, W, 3) f32 -> (4, H, W) int32 arms [h-, h+, v-, v+],
+    minus arms negative; |nb - p| < tau compared in f32."""
+    if img.dim() != 3 or img.shape[2] != 3:
+        raise ValueError(f"image must be (H, W, 3), got {tuple(img.shape)}")
+    check_tensor("img", img, img.shape)
+    if arm_len < 1:
+        raise ValueError(f"need arm_len >= 1, got {arm_len}")
+    if img.device.type == "cpu":
+        return cross_arms_plain(img, arm_len, tau, legacy_quirk)
+    require_cuda(img)
+    H, W = img.shape[:2]
+    arms = torch.empty((4, H, W), dtype=torch.int32, device=img.device)
+    with torch.cuda.device(img.device):
+        rc = _lib().cross_arms_f32(img.data_ptr(), arms.data_ptr(), H, W,
+                                   arm_len, 3 if legacy_quirk else 2,
+                                   float(np.float32(tau)), _stream(img))
+    raise_on_error(rc, "cross_arms")
+    LAUNCHES["cross_arms"] += 1
+    return arms
+
+
+def oii_pass(vol: torch.Tensor, arms_l: torch.Tensor, arms_r: torch.Tensor,
+             arm_len: int, axis: int, d0: int = 0) -> torch.Tensor:
+    """K7: one OII windowed mean over vol (D, H, W) f32, plane k holding
+    disparity d0 + k; axis 2 = horizontal (h arms), 1 = vertical (v arms).
+    arms_l, arms_r: (4, H, W) int32.  Returns (D, H, W) f32."""
+    if vol.dim() != 3:
+        raise ValueError(f"vol must be (D, H, W), got {tuple(vol.shape)}")
+    check_tensor("vol", vol, vol.shape)
+    D, H, W = vol.shape
+    _check_arms("arms_l", arms_l, H, W, vol.device)
+    _check_arms("arms_r", arms_r, H, W, vol.device)
+    if axis not in (1, 2):
+        raise ValueError(f"axis must be 1 (vertical) or 2 (horizontal), got {axis}")
+    if d0 < 0 or arm_len < 1:
+        raise ValueError(f"need d0 >= 0 and arm_len >= 1, got {d0}, {arm_len}")
+    if vol.device.type == "cpu":
+        return oii_pass_plain(vol, arms_l, arms_r, arm_len, axis, d0)
+    require_cuda(vol, arms_l, arms_r)
+    out = torch.empty_like(vol)
+    with torch.cuda.device(vol.device):
+        rc = _lib().oii_pass_f32(vol.data_ptr(), arms_l.data_ptr(),
+                                 arms_r.data_ptr(), out.data_ptr(), D, H, W,
+                                 arm_len, d0, axis, _stream(vol))
+    raise_on_error(rc, "oii_pass")
+    LAUNCHES["oii_pass_h" if axis == 2 else "oii_pass_v"] += 1
+    return out
+
+
+def vote_h(idx: torch.Tensor, arms_l: torch.Tensor, num_disp: int,
+           arm_len: int) -> torch.Tensor:
+    """K8, counts: rc[d, y, x] = #{j in [hm, hp] ∩ [-L, L] :
+    idx[y, clamp(x + j)] == d}.  idx: (H, W) int32 bins (ops.vote_indices).
+    Returns (num_disp, H, W) uint8."""
+    if idx.dim() != 2:
+        raise ValueError(f"idx must be (H, W), got {tuple(idx.shape)}")
+    check_tensor("idx", idx, idx.shape, dtype=torch.int32)
+    H, W = idx.shape
+    _check_arms("arms_l", arms_l, H, W, idx.device)
+    _check_arm_len(arm_len)
+    if num_disp < 1:
+        raise ValueError(f"need num_disp >= 1, got {num_disp}")
+    if idx.device.type == "cpu":
+        return vote_counts_plain(idx, arms_l, num_disp, arm_len)
+    require_cuda(idx, arms_l)
+    rc = torch.empty((num_disp, H, W), dtype=torch.uint8, device=idx.device)
+    with torch.cuda.device(idx.device):
+        err = _lib().vote_h_u8(idx.data_ptr(), arms_l.data_ptr(), rc.data_ptr(),
+                               num_disp, H, W, arm_len, _stream(idx))
+    raise_on_error(err, "vote_h")
+    LAUNCHES["vote_h"] += 1
+    return rc
+
+
+def vote_v(rc: torch.Tensor, arms_l: torch.Tensor, arm_len: int) -> torch.Tensor:
+    """K8, mode: argmax over d of the sum of rc[d, clamp(y + i), x] over
+    i in [vm, vp] ∩ [-L, L] (the anchor pixel's v arms), ties to the
+    highest d.  rc: (D, H, W) uint8.  Returns (H, W) int32."""
+    if rc.dim() != 3:
+        raise ValueError(f"rc must be (D, H, W), got {tuple(rc.shape)}")
+    check_tensor("rc", rc, rc.shape, dtype=torch.uint8)
+    D, H, W = rc.shape
+    _check_arms("arms_l", arms_l, H, W, rc.device)
+    if arm_len < 1:
+        raise ValueError(f"need arm_len >= 1, got {arm_len}")
+    if rc.device.type == "cpu":
+        return vote_mode_plain(rc, arms_l, arm_len)
+    require_cuda(rc, arms_l)
+    mode = torch.empty((H, W), dtype=torch.int32, device=rc.device)
+    with torch.cuda.device(rc.device):
+        err = _lib().vote_v_i32(rc.data_ptr(), arms_l.data_ptr(),
+                                mode.data_ptr(), D, H, W, arm_len, _stream(rc))
+    raise_on_error(err, "vote_v")
+    LAUNCHES["vote_v"] += 1
+    return mode

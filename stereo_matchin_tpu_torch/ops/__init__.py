@@ -1,9 +1,10 @@
-"""Plain PyTorch ops of the ASW path, module for module beside
+"""Plain PyTorch ops of the ASW and cross paths, module for module beside
 `stereo_matchin_tpu.ops`, with the same (D, H, W) / (T, H, W) layouts.
 
-They run on any device.  The aggregation and WTA entry points also take
-`kernels` ("auto" | "jnp" | "pallas") and route CUDA tensors through the
-hand-written kernels of `stereo_matchin_tpu_torch.kernels`.
+They run on any device.  The ASW aggregation and WTA entry points also
+take `kernels` ("auto" | "jnp" | "pallas"), and the cross aggregation and
+vote take `impl` (StereoConfig.oii_impl); both route CUDA tensors through
+the hand-written kernels of `stereo_matchin_tpu_torch.kernels`.
 """
 
 from .aggregation import (asw_aggregate, asw_aggregate_pass, asw_den_plain,
@@ -12,11 +13,15 @@ from .common import (disparity_to_image, edge_pad, image_from_q, shift_axis,
                      to_unit, unorm8_code, unorm8_level)
 from .consistency import ConsistencyResult, consistency, red_diagnostic
 from .cost import sad_cost_volume, shifted_columns
+from .cross import cross_arms
 from .median import median3x3, median_dispatch_truncate
+from .oii import combined_arms, cross_aggregate, oii_pass_plain
 from .refinement import (refine_pass_h, refine_pass_v, refine_view,
                          refinement_weights)
 from .support import support_weights
-from .wta import WTAResult, epipolar_target_scan, two_min_scan
+from .vote import (histogram_vote, vote_counts_plain, vote_indices,
+                   vote_mode_plain)
+from .wta import WTAResult, epipolar_target_scan, two_min_scan, wta_argmin
 from .wta_fast import wta_fast, wta_refined_fast
 
 __all__ = [
@@ -26,13 +31,18 @@ __all__ = [
     "asw_aggregate_pass",
     "asw_den_plain",
     "asw_pass_plain",
+    "combined_arms",
     "consistency",
+    "cross_aggregate",
+    "cross_arms",
     "disparity_to_image",
     "edge_pad",
     "epipolar_target_scan",
+    "histogram_vote",
     "image_from_q",
     "median3x3",
     "median_dispatch_truncate",
+    "oii_pass_plain",
     "red_diagnostic",
     "refine_pass_h",
     "refine_pass_v",
@@ -46,6 +56,10 @@ __all__ = [
     "two_min_scan",
     "unorm8_code",
     "unorm8_level",
+    "vote_counts_plain",
+    "vote_indices",
+    "vote_mode_plain",
+    "wta_argmin",
     "wta_fast",
     "wta_refined_fast",
 ]

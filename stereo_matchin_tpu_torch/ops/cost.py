@@ -1,5 +1,9 @@
 """Raw matching-cost volume: RGB sum of absolute differences (PyTorch port
-of `stereo_matchin_tpu/ops/cost.py`; reference kernels/asw_aggr.cl:41-61).
+of `stereo_matchin_tpu/ops/cost.py`; reference kernels/asw_aggr.cl:41-61
+and kernels/aggregation.cl:3-22).
+
+`sad_cost_volume` is the plain version of the CUDA kernel K6
+(kernels/sad_volume.py `sad_volume`).
 """
 
 from __future__ import annotations
@@ -21,16 +25,17 @@ def shifted_columns(plane: torch.Tensor, num_disp: int, d0: int = 0) -> torch.Te
 
 
 def sad_cost_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int,
-                    scale: float = 1.0) -> torch.Tensor:
+                    scale: float = 1.0, d0: int = 0) -> torch.Tensor:
     """left/right: (H, W, 3) floats in [0, 1].  Returns (D, H, W):
 
     cost[d, y, x] = (|l0 - r0| + |l1 - r1|) + |l2 - r2| on the `scale`
-    grid, with r read at (y, max(x - d, 0)) — the reference's channel
-    order (.x + .y + .z)."""
+    grid, with r read at (y, max(x - d0 - d, 0)) — the reference's channel
+    order (.x + .y + .z).  Each channel is scaled (rounded) before the
+    difference."""
     l = left.movedim(-1, 0) * scale                          # (3, H, W)
     r = right.movedim(-1, 0) * scale
     cost = None
     for c in range(3):
-        term = (l[c][None] - shifted_columns(r[c], num_disp)).abs()
+        term = (l[c][None] - shifted_columns(r[c], num_disp, d0)).abs()
         cost = term if cost is None else cost + term
     return cost.contiguous()

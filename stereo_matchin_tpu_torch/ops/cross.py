@@ -1,0 +1,54 @@
+"""Adaptive cross (arm) construction for the cross-based method; PyTorch
+port of `stereo_matchin_tpu/ops/cross.py` (reference kernels/cross.cl
+`Cross`).
+
+For each pixel and each of the four directions the walk extends the arm
+while the neighbour's colour stays within tau of the *anchor* pixel on all
+three channels and the neighbour lies in the frame; the first failure
+freezes the arm.  With the legacy quirk (cross.cl:607-609) the checks run
+at distances 3..L+1 instead of 2..L; arms lie in [1, L] either way.
+
+`cross_arms` is the plain version of the CUDA kernel K5
+(kernels/cross_oii.py `cross_arms`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .common import edge_pad
+
+# (dy, dx) per output plane: h-, h+, v-, v+.
+_DIRS = ((0, -1), (0, 1), (-1, 0), (1, 0))
+
+
+def cross_arms(img: torch.Tensor, arm_len: int = 25, tau: float = 0.10,
+               legacy_quirk: bool = True) -> torch.Tensor:
+    """img: (H, W, 3) f32 in [0, 1].  Returns (4, H, W) int32 arm planes
+    [h-, h+, v-, v+], the minus arms stored negative (cross.cl:679-682).
+
+    The similarity test is |nb - p| < tau in f32, with tau rounded to f32
+    as the JAX package and the kernel compare it."""
+    H, W = img.shape[0], img.shape[1]
+    dev = img.device
+    p = img.movedim(-1, 0)                                   # (3, H, W)
+    M = arm_len + 1
+    ext = edge_pad(edge_pad(p, M, M, 1), M, M, 2)
+    tau32 = float(np.float32(tau))
+    ys = torch.arange(H, device=dev)[:, None]
+    xs = torch.arange(W, device=dev)[None, :]
+    first = 3 if legacy_quirk else 2
+    arm = torch.ones((4, H, W), dtype=torch.int32, device=dev)
+    alive = torch.ones((4, H, W), dtype=torch.bool, device=dev)
+    for dist in range(first, first + arm_len - 1):
+        for i, (dy, dx) in enumerate(_DIRS):
+            oy, ox = M + dy * dist, M + dx * dist
+            nb = ext[:, oy:oy + H, ox:ox + W]
+            sim = ((nb - p).abs() < tau32).all(dim=0)
+            ny, nx = ys + dy * dist, xs + dx * dist
+            inb = (ny >= 0) & (ny <= H - 1) & (nx >= 0) & (nx <= W - 1)
+            alive[i] &= sim & inb
+            arm[i] += alive[i].to(torch.int32)
+    sign = torch.tensor([-1, 1, -1, 1], dtype=torch.int32, device=dev)
+    return sign[:, None, None] * arm

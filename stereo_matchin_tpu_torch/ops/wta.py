@@ -1,6 +1,7 @@
 """Winner-take-all with second-best confidence and the derived target-view
-disparity; PyTorch port of `stereo_matchin_tpu/ops/wta.py` (reference
-kernels/asw_wta.cl, asw_wta_ref.cl).
+disparity, and the cross method's plain argmin; PyTorch port of
+`stereo_matchin_tpu/ops/wta.py` (reference kernels/asw_wta.cl,
+asw_wta_ref.cl, init_disparity.cl).
 
 `two_min_scan` is the plain version of the CUDA kernel K3
 (kernels/wta_gather.py `two_min`).  `epipolar_target_scan` replays the
@@ -70,3 +71,10 @@ def epipolar_target_scan(cost: torch.Tensor, d1: torch.Tensor,
         best_b = torch.where(upd, b, best_b)
         c1 = torch.where(upd, v, c1)
     return best_b.to(cost.dtype), (c2 - c1) / c2
+
+
+def wta_argmin(cost: torch.Tensor) -> torch.Tensor:
+    """Init_disparity (init_disparity.cl:725-742): argmin over d of a
+    (D, H, W) volume, as cost's dtype.  torch.argmin returns the first
+    minimum, so ties go to the lowest d."""
+    return torch.argmin(cost, dim=0).to(cost.dtype)

@@ -13,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_matchin_tpu import TINY_CONFIG
+from stereo_matchin_tpu import StereoConfig, TINY_CONFIG
 from stereo_matchin_tpu.eval import synthetic_scene
 from stereo_matchin_tpu.io import png
 from stereo_matchin_tpu_torch import ops as tops
 from stereo_matchin_tpu_torch.__main__ import main
-from stereo_matchin_tpu_torch.models import asw
+from stereo_matchin_tpu_torch.models import asw, cross_based
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 OK_LINE = '"ok": true'
@@ -40,7 +40,8 @@ def pics(tmp_path):
 
 def test_run_writes_the_asw_artifacts(tmp_path, pics):
     out = tmp_path / "out"
-    assert main(["run", "--pics", str(pics), "--out", str(out)] + SMALL) == 0
+    assert main(["run", "--pics", str(pics), "--out", str(out),
+                 "--method", "asw"] + SMALL) == 0
     files = sorted(p.name for p in (out / "synthpair").iterdir())
     assert files == ["asw_consistency_post-reff.png",
                      "asw_consistency_pre-reff.png", "asw_disparity.png"]
@@ -55,10 +56,25 @@ def test_run_writes_the_asw_artifacts(tmp_path, pics):
     np.testing.assert_array_equal(pre, res.consistency_pre.numpy())
 
 
-def test_run_refuses_the_unported_cross_method(tmp_path, pics):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["run", "--pics", str(pics), "--out", str(tmp_path),
-              "--method", "cross"] + SMALL)
+def test_run_writes_the_cross_artifacts(tmp_path, pics):
+    out = tmp_path / "out"
+    assert main(["run", "--pics", str(pics), "--out", str(out),
+                 "--method", "cross", "--oii_impl", "taps"] + SMALL) == 0
+    pair = out / "synthpair"
+    assert sorted(p.name for p in pair.iterdir()) == [
+        "cross_based_disparity.png", "cross_based_initial.png", "median.png"]
+    cfg = StereoConfig(d_max=15, radius=3, r_iters=1, k_iters=1)
+    left = torch.from_numpy(png.read_rgb(str(tmp_path / "synthpair" / "l.png")))
+    right = torch.from_numpy(png.read_rgb(str(tmp_path / "synthpair" / "r.png")))
+    res = cross_based.cross_pipeline(left, right, cfg)
+    for name, img in (("cross_based_initial.png", res.initial),
+                      ("cross_based_disparity.png", res.final)):
+        got = png.read_gray(str(pair / name))
+        np.testing.assert_array_equal(np.rint(got * 255).astype(np.int32),
+                                      tops.unorm8_code(img).numpy(),
+                                      err_msg=name)
+    np.testing.assert_array_equal(png.read_rgb(str(pair / "median.png")),
+                                  res.median_left.numpy())
 
 
 def _run_smoke(cwd):

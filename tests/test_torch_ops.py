@@ -176,10 +176,13 @@ def test_port_imports_no_jax_and_divides_by_no_d_max():
 
 def test_importing_the_port_loads_no_jax():
     mods = ["stereo_matchin_tpu_torch", "stereo_matchin_tpu_torch.models.asw",
+            "stereo_matchin_tpu_torch.models.cross_based",
             "stereo_matchin_tpu_torch.convert",
             "stereo_matchin_tpu_torch.__main__",
             "stereo_matchin_tpu_torch.kernels.asw_aggregation",
-            "stereo_matchin_tpu_torch.kernels.wta_gather", "chip_smoke"]
+            "stereo_matchin_tpu_torch.kernels.wta_gather",
+            "stereo_matchin_tpu_torch.kernels.cross_oii",
+            "stereo_matchin_tpu_torch.kernels.sad_volume", "chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
