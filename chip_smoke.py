@@ -12,7 +12,14 @@ and the cross-based pipelines at REFERENCE_CONFIG on the committed
 fixture pair through the kernels and through the plain ops, checks the
 launch counts of each path and its output against the JAX package's
 stored results, times both routes of both paths, and runs the `run` CLI
-on PNG files.  Any failed check raises; the last line of a passing run is
+on PNG files.  Then the band drivers: the windowed K2 and the row-anchored
+K5 and K7-v against their plain versions, the ASW band drivers with
+disparity chunks against the whole frame (kernels and plain ops), every
+kernel against its plain version at BASELINE config 3's shapes (2880x1988,
+280 disparities), both methods at config 3 whole, wavefront-banded and
+halo-banded, bit-equal, with times and peak device memory held against
+the band plan, and `run --bands 3`.  Any failed check raises; the last line of a
+passing run is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -38,34 +45,48 @@ FIXTURE = ROOT / "tests" / "data" / "asw_torch_fixture.npz"
 CROSS_FIXTURE = ROOT / "tests" / "data" / "cross_torch_fixture.npz"
 CSRC = "stereo_matchin_tpu_torch/csrc"
 TPU_KERNELS = "stereo_matchin_tpu/kernels"
-# One entry per CUDA kernel: (name, CUDA source, replaced pallas_call
-# site(s), launch counter).  K1-K4 run on the ASW path, K5-K8 on the cross
-# path.
+# One entry per CUDA kernel launch site: (name, CUDA source, replaced
+# pallas_call site(s), launch counter, path whose launches it reports).
+# K1-K4 run on the ASW path, K5-K8 on the cross path; the band drivers'
+# path ("bands") launches K1/K2 with a disparity chunk's offset d0 (the
+# d-chunked grid kernels) and the windowed K2 (the wavefront).
 KERNELS = [
     ("asw_den", f"{CSRC}/asw_aggregation.cu",
-     f"{TPU_KERNELS}/asw_aggregation_dres.py:319", "asw_den"),
+     f"{TPU_KERNELS}/asw_aggregation_dres.py:319", "asw_den", "asw"),
     ("asw_pass_v", f"{CSRC}/asw_aggregation.cu",
-     f"{TPU_KERNELS}/asw_aggregation_dres.py:445", "asw_pass_v"),
+     f"{TPU_KERNELS}/asw_aggregation_dres.py:445", "asw_pass_v", "asw"),
     ("asw_pass_h", f"{CSRC}/asw_aggregation.cu",
-     f"{TPU_KERNELS}/asw_aggregation_dres.py:384", "asw_pass_h"),
+     f"{TPU_KERNELS}/asw_aggregation_dres.py:384", "asw_pass_h", "asw"),
     ("two_min", f"{CSRC}/wta_gather.cu",
-     f"{TPU_KERNELS}/wta_gather.py:314", "two_min"),
+     f"{TPU_KERNELS}/wta_gather.py:314", "two_min", "asw"),
     ("wta_diag", f"{CSRC}/wta_gather.cu",
-     f"{TPU_KERNELS}/wta_gather.py:426", "wta_diag"),
+     f"{TPU_KERNELS}/wta_gather.py:426", "wta_diag", "asw"),
     ("cross_arms", f"{CSRC}/cross_oii.cu",
-     f"{TPU_KERNELS}/cross_oii.py:629", "cross_arms"),
+     f"{TPU_KERNELS}/cross_oii.py:629", "cross_arms", "cross"),
     ("sad_volume", f"{CSRC}/sad_volume.cu",
-     f"{TPU_KERNELS}/sad_volume.py:120", "sad_volume"),
+     f"{TPU_KERNELS}/sad_volume.py:120", "sad_volume", "cross"),
     ("oii_pass_h", f"{CSRC}/cross_oii.cu",
      f"{TPU_KERNELS}/cross_oii.py:235; {TPU_KERNELS}/cross_oii.py:420",
-     "oii_pass_h"),
+     "oii_pass_h", "cross"),
     ("oii_pass_v", f"{CSRC}/cross_oii.cu",
-     f"{TPU_KERNELS}/cross_oii.py:300", "oii_pass_v"),
+     f"{TPU_KERNELS}/cross_oii.py:300", "oii_pass_v", "cross"),
     ("vote_h", f"{CSRC}/cross_oii.cu",
-     f"{TPU_KERNELS}/cross_oii.py:814", "vote_h"),
+     f"{TPU_KERNELS}/cross_oii.py:814", "vote_h", "cross"),
     ("vote_v", f"{CSRC}/cross_oii.cu",
-     f"{TPU_KERNELS}/cross_oii.py:853", "vote_v"),
+     f"{TPU_KERNELS}/cross_oii.py:853", "vote_v", "cross"),
+    ("asw_pass_win", f"{CSRC}/asw_aggregation.cu",
+     f"{TPU_KERNELS}/asw_aggregation_dres.py:500", "asw_pass_win", "bands"),
+    ("asw_den_chunk", f"{CSRC}/asw_aggregation.cu",
+     f"{TPU_KERNELS}/asw_aggregation.py:230", "asw_den", "bands"),
+    ("asw_pass_v_chunk", f"{CSRC}/asw_aggregation.cu",
+     f"{TPU_KERNELS}/asw_aggregation.py:354", "asw_pass_v", "bands"),
+    ("asw_pass_h_chunk", f"{CSRC}/asw_aggregation.cu",
+     f"{TPU_KERNELS}/asw_aggregation.py:417", "asw_pass_h", "bands"),
 ]
+# BASELINE config 3 (Middlebury 2014 full size) and the band count the JAX
+# package runs it at.
+CONFIG3_HW = (1988, 2880)
+CONFIG3_BANDS = 5
 
 
 def phase(title: str) -> None:
@@ -214,7 +235,7 @@ def check_kernels(pairs, cfg, stats):
     torch.cuda.synchronize()
 
 
-def time_kernels(left, right, cfg, stats):
+def time_kernels(left, right, cfg, stats, smi):
     """Kernel and plain-version device times at the main path's shapes."""
     from stereo_matchin_tpu_torch import ops
     from stereo_matchin_tpu_torch.kernels import asw_aggregation as ka
@@ -252,7 +273,7 @@ def time_kernels(left, right, cfg, stats):
         stats[name]["plain_ms"] = min(p1, p2)
         print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
               f"{p2:.4f} ms  (D={D}, {left.shape[0]}x{left.shape[1]}, "
-              f"T={2 * R + 1})")
+              f"T={2 * R + 1}; {smi})")
 
 
 def cross_inputs(left, right, cfg, D=None, d0=0):
@@ -317,7 +338,7 @@ def check_cross_kernels(pairs, cfg, stats):
     torch.cuda.synchronize()
 
 
-def time_cross_kernels(left, right, cfg, stats):
+def time_cross_kernels(left, right, cfg, stats, smi):
     """K5-K8 and plain-version device times at the cross path's shapes."""
     from stereo_matchin_tpu_torch import ops
     from stereo_matchin_tpu_torch.kernels import cross_oii as kc
@@ -351,7 +372,461 @@ def time_cross_kernels(left, right, cfg, stats):
         stats[name]["ms"] = min(k1, k2)
         stats[name]["plain_ms"] = min(p1, p2)
         print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-              f"{p2:.4f} ms  (D={D}, {left.shape[0]}x{left.shape[1]}, L={L})")
+              f"{p2:.4f} ms  (D={D}, {left.shape[0]}x{left.shape[1]}, L={L}; "
+              f"{smi})")
+
+
+def check_band_kernels(pairs, cfg, stats):
+    """The band drivers' kernels against their plain versions on the card:
+    the windowed K2 over rows with R real margin rows on each side, K1/K2
+    on a disparity chunk (d0 > 0), and K5 and K7-v on windows of frame
+    rows anchored by row0/h_glob, one of them running past the frame
+    bottom (edge-replicated rows)."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import asw_aggregation as ka
+    from stereo_matchin_tpu_torch.kernels import cross_oii as kc
+
+    R, eps, L = cfg.radius, cfg.eps, cfg.arm_len
+    tau, q = cfg.tau, cfg.legacy_cross_arm_quirk
+    for label, (left, right) in pairs.items():
+        H, W = left.shape[:2]
+        wl, wr, hl, hr = aggregation_strips(left, right, cfg)
+        a, b = R + 5, H - R - 7
+        for D, d0 in ((cfg.num_disp, 0), (57, 5)):
+            tag = f"{label} D={D} d0={d0}"
+            cost = ops.sad_cost_volume(left, right, D, 255.0, d0)
+            den = ops.asw_den_plain(wl, wr, eps, d0, D)
+            win = cost[:, a - R:b + R].contiguous()
+            strips = [x[:, a:b].contiguous() for x in (wl, wr, den)]
+            compare(f"asw_pass_win {tag} rows {a}..{b}",
+                    [ka.asw_pass_win(win, *strips, eps, d0)],
+                    [ops.asw_pass_win_plain(win, *strips, eps, d0)],
+                    stats["asw_pass_win"])
+        # One chunk of REFERENCE_CONFIG's 61 planes in 3 (21 planes, d0 21).
+        D, d0 = 21, 21
+        cost = ops.sad_cost_volume(left, right, D, 255.0, d0)
+        for strips, axis in (((wl, wr), 1), ((hl, hr), 2)):
+            den = ops.asw_den_plain(*strips, eps, d0, D)
+            compare(f"asw_den_chunk {label} D={D} d0={d0} axis={axis}",
+                    [ka.asw_den(*strips, eps, d0, D)], [den],
+                    stats["asw_den_chunk"])
+            key = "asw_pass_v_chunk" if axis == 1 else "asw_pass_h_chunk"
+            compare(f"{key} {label} D={D} d0={d0}",
+                    [ka.asw_pass(cost, *strips, den, eps, axis, d0)],
+                    [ops.asw_pass_plain(cost, *strips, den, eps, axis, d0)],
+                    stats[key])
+        ml, mr = ops.median3x3(left), ops.median3x3(right)
+        for row0, rows in ((H // 3, H // 2), (H - 100, 120)):
+            idx = torch.arange(row0, row0 + rows, device=left.device)
+            wml, wmr = (m[idx.clamp(max=H - 1)].contiguous() for m in (ml, mr))
+            tag = f"{label} rows {row0}..{row0 + rows} of {H}"
+            al = ops.cross_arms(wml, L, tau, q, row0, H)
+            compare(f"cross_arms {tag}",
+                    [kc.cross_arms(wml, L, tau, q, row0, H)], [al],
+                    stats["cross_arms"])
+            ar = ops.cross_arms(wmr, L, tau, q, row0, H)
+            for D, d0 in ((cfg.num_disp, 0), (57, 5)):
+                temp = ops.oii_pass_plain(
+                    ops.sad_cost_volume(wml, wmr, D, 1.0, d0), al, ar, L, 2,
+                    d0)
+                compare(f"oii_pass_v {tag} D={D} d0={d0}",
+                        [kc.oii_pass(temp, al, ar, L, 1, d0, row0, H)],
+                        [ops.oii_pass_plain(temp, al, ar, L, 1, d0, row0, H)],
+                        stats["oii_pass_v"])
+    torch.cuda.synchronize()
+
+
+def band_kernels_config3(left, right, cfg, stats, smi):
+    """The ASW band drivers' kernels at config 3's shapes, against their
+    plain versions (0 ulp) and timed: K1 and K2 on the second of 4
+    disparity chunks of the whole frame, the windowed K2 on an interior
+    wavefront band's level window, and K3/K4 on all D planes over that
+    band's postaggregate rows [s - keep, e + keep)."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import asw_aggregation as ka
+    from stereo_matchin_tpu_torch.kernels import wta_gather as kw
+    from stereo_matchin_tpu_torch.models import wavefront
+    from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
+                                                       _two_min_plain)
+
+    R, eps, D = cfg.radius, cfg.eps, cfg.num_disp
+    chunk = -(-D // cfg.aggr_d_chunks)
+    d0 = chunk
+    H, W = left.shape[:2]
+    wl, wr, hl, hr = aggregation_strips(left, right, cfg)
+    cost = ops.sad_cost_volume(left, right, chunk, 255.0, d0)
+    den_v = ops.asw_den_plain(wl, wr, eps, d0, chunk)
+    den_h = ops.asw_den_plain(hl, hr, eps, d0, chunk)
+    g = wavefront.plan_bands(H, CONFIG3_BANDS, cfg)[1]
+    a, b = g.s, g.e
+    win = cost[:, a - R:b + R].contiguous()
+    strips = [x[:, a:b].contiguous() for x in (wl, wr, den_v)]
+    keep = cfg.k_iters * R + 1
+    t0, t1 = a - keep, b + keep
+    tail = ops.sad_cost_volume(left[t0:t1], right[t0:t1], D, 255.0)
+    tail[:, :3, :5] = 2e5                  # planes above the big cap
+    sc, ct = tail[0] * 0.01, tail[1] * 0.05
+    d1 = _two_min_plain(tail)[2]
+    chunk_at = f"D={chunk} d0={d0}, {H} rows"
+    tail_at = f"D={D}, rows {t0}..{t1}"
+    # (name, where, kernel, plain version, timed): K3/K4 keep their times
+    # at 288x384 (phase 3).
+    cases = [
+        ("asw_den_chunk", chunk_at, lambda: ka.asw_den(wl, wr, eps, d0, chunk),
+         lambda: ops.asw_den_plain(wl, wr, eps, d0, chunk), True),
+        ("asw_pass_v_chunk", chunk_at,
+         lambda: ka.asw_pass(cost, wl, wr, den_v, eps, 1, d0),
+         lambda: ops.asw_pass_plain(cost, wl, wr, den_v, eps, 1, d0), True),
+        ("asw_pass_h_chunk", chunk_at,
+         lambda: ka.asw_pass(cost, hl, hr, den_h, eps, 2, d0),
+         lambda: ops.asw_pass_plain(cost, hl, hr, den_h, eps, 2, d0), True),
+        ("asw_pass_win", f"D={chunk} d0={d0}, rows {a}..{b}",
+         lambda: ka.asw_pass_win(win, *strips, eps, d0),
+         lambda: ops.asw_pass_win_plain(win, *strips, eps, d0), True),
+        ("two_min", tail_at + ", no penalty",
+         lambda: kw.two_min(tail, big=cfg.big),
+         lambda: _two_min_plain(tail, big=cfg.big), False),
+        ("two_min", tail_at, lambda: kw.two_min(tail, sc, ct, cfg.big),
+         lambda: _two_min_plain(tail, sc, ct, cfg.big), False),
+        ("wta_diag", tail_at, lambda: kw.wta_diag(tail, d1, sc, ct, cfg.big),
+         lambda: _diag_two_min_plain(tail, d1, sc, ct, cfg.big), False),
+    ]
+    for name, at, kern, plain, timed_here in cases:
+        got, want = kern(), plain()
+        if not isinstance(got, (tuple, list)):
+            got, want = [got], [want]
+        compare(f"{name} config 3 ({at})", got, want, stats[name])
+        del got, want
+        if not timed_here:
+            continue
+        p1 = cuda_ms(plain, 2)
+        k1 = cuda_ms(kern, 5)
+        k2 = cuda_ms(kern, 5)
+        p2 = cuda_ms(plain, 2)
+        stats[name]["ms"] = min(k1, k2)
+        stats[name]["plain_ms"] = min(p1, p2)
+        print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms  ({at} x {W}, T={2 * R + 1}; {smi})")
+    del cost, den_v, den_h, win, strips, tail, sc, ct, d1
+    torch.cuda.synchronize()
+
+
+def cross_kernels_config3(left, right, cfg, stats):
+    """K5-K8 against their plain versions at config 3's shapes, all
+    cfg.num_disp planes, on the image rows of the cross wavefront's last
+    band: arms and the OII vertical pass anchored by row0/h_glob, rows
+    past the frame bottom edge-replicated."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import cross_oii as kc
+    from stereo_matchin_tpu_torch.kernels.sad_volume import sad_volume
+    from stereo_matchin_tpu_torch.models import wavefront_cross
+
+    H = left.shape[0]
+    D, L, tau, q = cfg.num_disp, cfg.arm_len, cfg.tau, cfg.legacy_cross_arm_quirk
+    g = wavefront_cross.plan_bands_cross(H, CONFIG3_BANDS, cfg)[-1]
+    row0, row1 = g.g0, g.e + 3 * L + 3
+    rows = torch.arange(row0, row1, device=left.device).clamp(max=H - 1)
+    ml, mr = (ops.median3x3(x)[rows].contiguous() for x in (left, right))
+    tag = f"config 3 rows {row0}..{row1} of {H}, D={D}"
+    al, ar = (ops.cross_arms(m, L, tau, q, row0, H) for m in (ml, mr))
+    for side, m, want in (("left", ml, al), ("right", mr, ar)):
+        compare(f"cross_arms {tag} {side}",
+                [kc.cross_arms(m, L, tau, q, row0, H)], [want],
+                stats["cross_arms"])
+    cost = ops.sad_cost_volume(ml, mr, D, 1.0)
+    compare(f"sad_volume {tag}", [sad_volume(ml, mr, D, 1.0)], [cost],
+            stats["sad_volume"])
+    temp = ops.oii_pass_plain(cost, al, ar, L, 2)
+    compare(f"oii_pass_h {tag}", [kc.oii_pass(cost, al, ar, L, 2)], [temp],
+            stats["oii_pass_h"])
+    del cost
+    aggr = ops.oii_pass_plain(temp, al, ar, L, 1, 0, row0, H)
+    compare(f"oii_pass_v {tag}", [kc.oii_pass(temp, al, ar, L, 1, 0, row0, H)],
+            [aggr], stats["oii_pass_v"])
+    del temp
+    idx = ops.vote_indices(ops.disparity_to_image(ops.wta_argmin(aggr),
+                                                  cfg.d_max), cfg.d_max)
+    del aggr
+    rc = ops.vote_counts_plain(idx, al, D, L)
+    compare(f"vote_h {tag}", [kc.vote_h(idx, al, D, L)], [rc], stats["vote_h"])
+    compare(f"vote_v {tag}", [kc.vote_v(rc, al, L)],
+            [ops.vote_mode_plain(rc, al, L)], stats["vote_v"])
+    del rc, idx, al, ar, ml, mr
+    torch.cuda.synchronize()
+
+
+class BandPeaks:
+    """Peak device memory per band: wraps the function each band ends with
+    (module.name), records torch.cuda.max_memory_allocated() when it
+    returns and restarts the peak count for the next band."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.peaks = []
+
+    def __enter__(self):
+        import torch
+
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def expected_asw_launches(cfg, bands, route, kernels):
+    """Launches of one ASW frame: c = disparity chunks, per chunk and band
+    K1 x2 and r levels of K2; the wavefront's first band runs the clamped
+    vertical pass, its later bands the windowed one; K3 and K4 k+1 times
+    per band."""
+    D = cfg.num_disp
+    chunk = -(-D // max(cfg.aggr_d_chunks, 1))
+    c, r, k = -(-D // chunk), cfg.r_iters, cfg.k_iters
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(asw_den=2 * c * bands, asw_pass_h=c * r * bands,
+                two_min=(k + 1) * bands, wta_diag=(k + 1) * bands)
+    if route == "wavefront":
+        want.update(asw_pass_v=c * r, asw_pass_win=c * r * (bands - 1))
+    else:
+        want.update(asw_pass_v=c * r * bands)
+    return want
+
+
+def expected_cross_launches(bands, kernels):
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(cross_arms=2 * bands, sad_volume=bands, oii_pass_h=bands,
+                oii_pass_v=bands, vote_h=bands, vote_v=bands)
+    return want
+
+
+def check_launches(label, got, want):
+    print(f"  {label} launches: {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launch counts {got} != {want}")
+
+
+def check_maps_equal(label, got, want):
+    import torch
+
+    for name, g, w in zip(("map 0", "map 1"), got, want):
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{label}: {name} differs from the whole "
+                                 f"frame's")
+    print(f"  {label}: maps bit-equal to the whole frame's")
+
+
+def asw_band_phase(cfg, kernels):
+    """The ASW band drivers on a synthetic scene: 2 bands, aggr_d_chunks 3,
+    through the kernels and the plain ops, against the whole frame."""
+    import torch
+
+    from stereo_matchin_tpu_torch.models import asw, tiled
+
+    # 375 rows cannot hold two wavefront bands at REFERENCE_CONFIG: each
+    # needs 2 * keep = 2 * (k * radius + 1) = 194 rows.
+    left, right = scene_pair(5, 400, 450, cfg.d_max)
+    plain = cfg.replace(kernels="jnp")
+    kernels.reset_launches()
+    whole = asw.asw_pipeline(left, right, cfg)
+    torch.cuda.synchronize()
+    check_launches("whole frame", dict(kernels.LAUNCHES),
+                   expected_asw_launches(cfg, 1, "whole", kernels))
+    whole = (whole.disparity, whole.filled)
+    whole_p = asw.asw_pipeline(left, right, plain)
+    check_maps_equal("whole frame, plain ops", (whole_p.disparity,
+                                                 whole_p.filled), whole)
+    launches = {}
+    for route in ("wavefront", "halo"):
+        kernels.reset_launches()
+        got = tiled.asw_pipeline_tiled(left, right, cfg, 2,
+                                       wavefront=route == "wavefront")
+        torch.cuda.synchronize()
+        launches[route] = dict(kernels.LAUNCHES)
+        check_launches(route, launches[route],
+                       expected_asw_launches(cfg, 2, route, kernels))
+        check_maps_equal(f"{route}, kernels", got, whole)
+        got_p = tiled.asw_pipeline_tiled(left, right, plain, 2,
+                                         wavefront=route == "wavefront")
+        if dict(kernels.LAUNCHES) != launches[route]:
+            raise AssertionError("the plain band route launched a kernel")
+        check_maps_equal(f"{route}, plain ops", got_p, whole)
+    return launches
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def config3_pair(seed):
+    """A seeded UNORM8 pair at config 3's size, made on the card: the right
+    view is the left one shifted by 37 columns plus noise of +-8 codes."""
+    import torch
+
+    H, W = CONFIG3_HW
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randint(0, 256, (H, W, 3), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    noise = torch.randint(-8, 9, (H, W, 3), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    shifted = (torch.roll(codes, -37, dims=1) + noise).clamp_(0, 255)
+    return tuple((c.float() / 255.0).contiguous() for c in (codes, shifted))
+
+
+def config3_asw(cfg, kernels, smi):
+    """Config 3 ASW through the kernels: whole frame, wavefront and halo
+    bands (5), twice, and once the wavefront in 8 bands of 256 kept rows;
+    times, and peak memory per band held against the band plan
+    (models.tiled.asw_plan_bytes)."""
+    import torch
+
+    from stereo_matchin_tpu_torch.models import asw, tiled, wavefront
+
+    H, W = CONFIG3_HW
+    B = CONFIG3_BANDS
+    left, right = config3_pair(3)
+    vol_row = cfg.num_disp * W * 4                 # bytes of one volume row
+    band = -(-H // B)
+    # route: (bands, wavefront switch, kept rows of each band)
+    routes = {
+        "whole": (1, None, [H]),
+        "wavefront": (B, True, [g.e - g.s for g in
+                                wavefront.plan_bands(H, B, cfg)]),
+        "halo": (B, False, [min(H, (b + 1) * band) - b * band
+                            for b in range(B)]),
+        "wavefront8": (8, True, [g.e - g.s for g in
+                                 wavefront.plan_bands(H, 8, cfg)])}
+
+    def run(route):
+        bands, wf, _ = routes[route]
+        if bands == 1:
+            res = asw.asw_pipeline(left, right, cfg)
+            return res.disparity, res.filled
+        return tiled.asw_pipeline_tiled(left, right, cfg, bands, wavefront=wf)
+
+    maps, launches, over = {}, {}, []
+    for rep, names in enumerate((("whole", "wavefront", "halo"),
+                                 ("whole", "wavefront", "halo",
+                                  "wavefront8"))):
+        for route in names:
+            bands, wf, kept = routes[route]
+            kernels.reset_launches()
+            with BandPeaks(asw, "asw_postaggregate") as bp:
+                maps[route], ms = timed(lambda: run(route))
+            launches[route] = dict(kernels.LAUNCHES)
+            if len(bp.peaks) != len(kept):
+                raise AssertionError(f"{route}: {len(bp.peaks)} bands seen")
+            plan = [tiled.asw_plan_bytes(n, W, cfg, banded=bands > 1)
+                    for n in kept]
+            over += [(route, i, p, q) for i, (p, q) in
+                     enumerate(zip(bp.peaks, plan)) if p > q]
+            print(f"  ASW {route} (run {rep + 1}): {ms:.1f} ms; peak "
+                  f"{max(bp.peaks) / 1e9:.3f} GB; per band (kept rows: peak "
+                  f"GB, volume rows per kept row, plan GB) "
+                  + "; ".join(f"{n}: {p / 1e9:.3f}, {p / vol_row / n:.3f}, "
+                              f"{q / 1e9:.3f}"
+                              for n, p, q in zip(kept, bp.peaks, plan))
+                  + f"; {smi}")
+        for route in names:
+            bands, wf, _ = routes[route]
+            check_launches(f"ASW {route}", launches[route],
+                           expected_asw_launches(
+                               cfg, bands, "wavefront" if wf else route,
+                               kernels))
+            if route == "whole":
+                continue
+            for name, g, w in zip(("disparity", "filled"), maps[route],
+                                  maps["whole"]):
+                if not torch.equal(g, w):
+                    n = int((g != w).sum())
+                    raise AssertionError(f"config 3 ASW {route}: {name} "
+                                         f"differs on {n} pixels")
+            print(f"  ASW {route}: disparity and filled bit-equal to the "
+                  f"whole frame")
+        d = maps["whole"][0]
+        if d.shape != (H, W) or not torch.isfinite(d).all():
+            raise AssertionError(f"bad disparity map {tuple(d.shape)}")
+        maps.clear()
+    print(f"  auto_bands at config 3 on this card: "
+          f"{tiled.auto_bands((H, W, 3), cfg)}")
+    if over:
+        raise AssertionError(
+            "config 3 ASW peaked above the band plan: " + "; ".join(
+                f"{r} band {i}: {p / 1e9:.3f} > {q / 1e9:.3f} GB"
+                for r, i, p, q in over))
+
+
+def config3_cross(cfg, kernels, stats, smi):
+    """Config 3 cross-based: K5-K8 against their plain versions on one
+    band's rows, then the whole frame, wavefront and halo bands through the
+    kernels; times and peak memory."""
+    import torch
+
+    from stereo_matchin_tpu_torch.models import cross_based, tiled
+
+    H, W = CONFIG3_HW
+    B = CONFIG3_BANDS
+    t0 = time.perf_counter()
+    left, right = scene_pair(4, H, W, cfg.d_max)
+    print(f"  synthetic scene {H}x{W} made in "
+          f"{time.perf_counter() - t0:.1f} s (host; {smi})")
+    cross_kernels_config3(left, right, cfg, stats)
+    runs = {"whole": lambda: cross_based.cross_pipeline(left, right, cfg),
+            "wavefront": lambda: tiled.cross_pipeline_tiled(
+                left, right, cfg, B, wavefront=True),
+            "halo": lambda: tiled.cross_pipeline_tiled(
+                left, right, cfg, B, wavefront=False)}
+    launches, maps = {}, {}
+    for rep in range(2):
+        for route, fn in runs.items():
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out, ms = timed(fn)
+            peak = torch.cuda.max_memory_allocated()
+            launches[route] = dict(kernels.LAUNCHES)
+            maps[route] = ((out.initial, out.final) if route == "whole"
+                           else out)
+            print(f"  cross {route} (run {rep + 1}): {ms:.1f} ms; peak "
+                  f"{peak / 1e9:.3f} GB; {smi}")
+            del out
+        check_launches("cross whole", launches["whole"],
+                       expected_cross_launches(1, kernels))
+        for route in ("wavefront", "halo"):
+            check_launches(f"cross {route}", launches[route],
+                           expected_cross_launches(B, kernels))
+            for name, g, w in zip(("initial", "final"), maps[route],
+                                  maps["whole"]):
+                if not torch.equal(g, w):
+                    n = int((g != w).sum())
+                    raise AssertionError(f"config 3 cross {route}: {name} "
+                                         f"differs on {n} pixels")
+            print(f"  cross {route}: initial and final bit-equal to the "
+                  f"whole frame")
 
 
 def codes(img):
@@ -390,7 +865,7 @@ def main() -> int:
     _build.library()
     print(f"built {lib.relative_to(ROOT)} from "
           f"{[str(s.relative_to(ROOT)) for s in _build.sources()]} in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
 
     cfg = REFERENCE_CONFIG
     fx = np.load(FIXTURE)
@@ -400,9 +875,9 @@ def main() -> int:
              "375x450 random": random_pair(np.random.default_rng(3), 375, 450)}
 
     phase("3. kernels against their plain versions on the card")
-    stats = {k[3]: {} for k in KERNELS}
+    stats = {k[0]: {} for k in KERNELS}
     check_kernels(pairs, cfg, stats)
-    time_kernels(left, right, cfg, stats)
+    time_kernels(left, right, cfg, stats, smi)
 
     phase("4. ASW slice at REFERENCE_CONFIG: kernels against plain ops")
     kernels.reset_launches()
@@ -413,10 +888,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"  launches in one frame: {launches} (asw_pass v+h: "
           f"{launches['asw_pass_v'] + launches['asw_pass_h']})")
-    want = {"asw_den": 2, "asw_pass_v": cfg.r_iters,
-            "asw_pass_h": cfg.r_iters, "two_min": cfg.k_iters + 1,
-            "wta_diag": cfg.k_iters + 1}
-    want.update(dict.fromkeys(kernels.CROSS_KERNELS, 0))
+    want = expected_asw_launches(cfg, 1, "whole", kernels)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if dict(kernels.LAUNCHES) != launches:
@@ -470,7 +942,7 @@ def main() -> int:
     cross_pairs = {"288x384 fixture": (left, right),
                    "375x450 synthetic": scene_pair(3, 375, 450, cfg.d_max)}
     check_cross_kernels(cross_pairs, cfg, stats)
-    time_cross_kernels(left, right, cfg, stats)
+    time_cross_kernels(left, right, cfg, stats, smi)
 
     phase("8. cross slice at REFERENCE_CONFIG: kernels against plain ops")
     kernels.reset_launches()
@@ -552,14 +1024,67 @@ def main() -> int:
             raise AssertionError("CLI median.png differs from the slice")
         print("  median.png equals the slice's median-filtered left image")
 
-    main_path = {**{k: launches[k] for k in kernels.ASW_KERNELS},
-                 **{k: cross_launches[k] for k in kernels.CROSS_KERNELS}}
+    phase("12. band drivers' kernels against their plain versions on the "
+          "card")
+    check_band_kernels(cross_pairs, cfg, stats)
+
+    phase("13. ASW band drivers, REFERENCE_CONFIG with aggr_d_chunks=3, "
+          "2 bands, 400x450 synthetic scene")
+    band_launches = asw_band_phase(cfg.replace(aggr_d_chunks=3), kernels)
+
+    c3 = cfg.replace(d_max=279, aggr_d_chunks=4)
+    phase(f"14. config 3 ASW kernels against their plain versions, and "
+          f"timed: {CONFIG3_HW[0]}x{CONFIG3_HW[1]}, d_max 279, "
+          f"aggr_d_chunks 4")
+    l3, r3 = config3_pair(3)
+    band_kernels_config3(l3, r3, c3, stats, smi)
+    del l3, r3
+
+    phase(f"15. config 3 ASW through the kernels: whole frame, wavefront and "
+          f"halo bands ({CONFIG3_BANDS}), wavefront in 8 bands")
+    config3_asw(c3, kernels, smi)
+
+    phase(f"16. config 3 cross-based: kernels against their plain versions "
+          f"on one band's rows; whole frame, wavefront and halo bands "
+          f"({CONFIG3_BANDS})")
+    config3_cross(cfg.replace(d_max=279), kernels, stats, smi)
+
+    phase("17. run CLI --bands 3 on PNG files")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = pathlib.Path(tmp)
+        png.write_rgb(tmp / "l.png", fx["left"])
+        png.write_rgb(tmp / "r.png", fx["right"])
+        (tmp / "pics.txt").write_text(f"{tmp / 'l.png'}\n{tmp / 'r.png'}\n")
+        rc = cli(["run", "--pics", str(tmp / "pics.txt"), "--out",
+                  str(tmp / "out"), "--device", "cuda", "--bands", "3"])
+        out = tmp / "out" / tmp.name
+        if rc != 0:
+            raise AssertionError(f"CLI exited with {rc}")
+        if sorted(p.name for p in out.iterdir()) != [
+                "asw_disparity.png", "cross_based_disparity.png",
+                "cross_based_initial.png"]:
+            raise AssertionError(f"CLI --bands wrote {list(out.iterdir())}")
+        for name, want in (("asw_disparity.png", codes(res_k.disparity)),
+                           ("cross_based_initial.png", got["initial"]),
+                           ("cross_based_disparity.png", got["final"])):
+            if not np.array_equal(codes(torch.from_numpy(
+                    png.read_gray(str(out / name)))), want):
+                raise AssertionError(f"CLI --bands 3 {name} differs from the "
+                                     f"whole-frame slice")
+            print(f"  {name} equals the whole-frame slice's codes")
+
+    path_launches = {
+        "asw": launches, "cross": cross_launches,
+        "bands": band_launches["wavefront"]}
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": main_path[key],
-         "max_abs_err": stats[key]["max_abs_err"],
-         "ms": stats[key]["ms"], "plain_ms": stats[key]["plain_ms"]}
-        for name, source, replaces, key in KERNELS]}
+         "launches": path_launches[path][key],
+         "max_abs_err": stats[name]["max_abs_err"],
+         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+        for name, source, replaces, key, path in KERNELS]}
+    for entry in report["kernels"]:
+        if entry["launches"] < 1:
+            raise AssertionError(f"{entry['name']}: no launch on its path")
     print()
     print(json.dumps(report))
     print(smi)

@@ -8,6 +8,13 @@
 cross_based_initial.png, cross_based_disparity.png and median.png; for the
 ASW method asw_disparity.png, asw_consistency_pre-reff.png and
 asw_consistency_post-reff.png.  --method both (the default) writes all six.
+
+--bands N > 1 runs the row-band drivers (models/tiled.py: the wavefront
+strip carry where the band layout allows, halo bands otherwise) and, as
+the JAX CLI does, writes the disparity maps only: cross_based_initial.png,
+cross_based_disparity.png and asw_disparity.png.  --bands 0 picks the band
+count from the card's memory (models.tiled.auto_bands; one band on the
+CPU) and prints it.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ import time
 def _config_from_args(args):
     from stereo_matchin_tpu.config import StereoConfig
 
-    kw = {f: getattr(args, f) for f in ("d_max", "radius", "r_iters",
-                                        "k_iters", "kernels", "oii_impl")
+    kw = {f: getattr(args, f) for f in ("d_max", "radius", "arm_len",
+                                        "r_iters", "k_iters", "aggr_d_chunks",
+                                        "kernels", "oii_impl")
           if getattr(args, f) is not None}
     return StereoConfig(**kw)
 
@@ -41,25 +49,40 @@ def cmd_run(args) -> int:
     from stereo_matchin_tpu.io import png
     from stereo_matchin_tpu.io.datasets import safe_pair_name
 
-    from .models import asw, cross_based
+    from .models import asw, cross_based, tiled
 
     cfg = _config_from_args(args)
     device = torch.device(args.device)
+    if args.bands < 0:
+        raise SystemExit(f"--bands must be >= 0, got {args.bands}")
     for pair in _resolve_pairs(args):
         out_dir = os.path.join(args.out, safe_pair_name(pair.name))
         os.makedirs(out_dir, exist_ok=True)
         left = torch.from_numpy(png.read_rgb(pair.left)).to(device)
         right = torch.from_numpy(png.read_rgb(pair.right)).to(device)
+        bands = args.bands
+        if bands == 0:
+            bands = tiled.auto_bands(left.shape, cfg, device=device)
+            print(f"{pair.name}: auto bands -> {bands}")
         t0 = time.perf_counter()
         if args.method in ("both", "cross"):
-            res = cross_based.cross_pipeline(left, right, cfg)
-            png.write_rgb(os.path.join(out_dir, "median.png"),
-                          res.median_left.cpu().numpy())
+            if bands > 1:
+                initial, final = tiled.cross_pipeline_tiled(left, right, cfg,
+                                                            bands)
+            else:
+                res = cross_based.cross_pipeline(left, right, cfg)
+                initial, final = res.initial, res.final
+                png.write_rgb(os.path.join(out_dir, "median.png"),
+                              res.median_left.cpu().numpy())
             png.write_gray(os.path.join(out_dir, "cross_based_initial.png"),
-                           res.initial.cpu().numpy())
+                           initial.cpu().numpy())
             png.write_gray(os.path.join(out_dir, "cross_based_disparity.png"),
-                           res.final.cpu().numpy())
-        if args.method in ("both", "asw"):
+                           final.cpu().numpy())
+        if args.method in ("both", "asw") and bands > 1:
+            disparity, _ = tiled.asw_pipeline_tiled(left, right, cfg, bands)
+            png.write_gray(os.path.join(out_dir, "asw_disparity.png"),
+                           disparity.cpu().numpy())
+        elif args.method in ("both", "asw"):
             res = asw.asw_pipeline(left, right, cfg)
             png.write_gray(os.path.join(out_dir, "asw_disparity.png"),
                            res.disparity.cpu().numpy())
@@ -84,8 +107,15 @@ def main(argv=None) -> int:
     p_run.add_argument("--out", default="out")
     p_run.add_argument("--method", choices=["both", "cross", "asw"],
                        default="both")
-    for f in ("d_max", "radius", "r_iters", "k_iters"):
+    for f in ("d_max", "radius", "arm_len", "r_iters", "k_iters",
+              "aggr_d_chunks"):
         p_run.add_argument(f"--{f}", type=int, default=None)
+    p_run.add_argument("--bands", type=int, default=1,
+                       help="row bands for frames whose cost volume does not "
+                            "fit the device (wavefront strip carry where the "
+                            "layout allows, halo bands otherwise); disparity "
+                            "maps only; 0 = from the card's memory "
+                            "(models.tiled.auto_bands; 1 on the CPU)")
     p_run.add_argument("--kernels", choices=["auto", "jnp", "pallas"],
                        default=None,
                        help="ASW: auto = CUDA kernels on a CUDA device; jnp = "

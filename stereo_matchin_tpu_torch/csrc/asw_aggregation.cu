@@ -6,18 +6,22 @@
 //   K1 asw_den_f32  <- asw_den_dres   (_den_kernel)
 //   K2 asw_pass_f32 <- asw_vpass_dres (_v_kernel), axis 1
 //                      asw_hpass_dres (_h_kernel), axis 2
-// and, through d0, covers the (D, H, W) grid kernels of
-// kernels/asw_aggregation.py (asw_den_pallas, asw_vpass_pallas,
-// asw_hpass_pallas) once their callers are ported.
+//   K2 asw_pass_win_f32 <- asw_vpass_dres_win (_v_kernel over caller-supplied
+//                          margin rows), the wavefront band driver's pass
+// and, through d0 (a disparity chunk's offset), the (D, H, W) grid kernels
+// of kernels/asw_aggregation.py (asw_den_pallas, asw_vpass_pallas,
+// asw_hpass_pallas) on the d-chunked path of models/asw.py.
 //
 //   K1: den[d,y,x] = eps + sum_t wl[t,y,x] * wr[t,y,max(x-d0-d,0)]
 //   K2: num = eps; num += (wl[t,y,x] * wr[t,y,max(x-d0-d,0)]) * cost[d, nb_t]
 //       out = num / den          nb_t: y+t-R (axis 1) or x+t-R (axis 2), clamped
+//       windowed: cost is (D, H+2R, W) of real rows, nb_t = row y+t, no clamp
 //
 // Numerics: built with --fmad=false and without -use_fast_math, so every
 // product and sum is rounded once, in t order, and the divide is IEEE --
-// the same operations as ops/aggregation.py asw_den_plain / asw_pass_plain,
-// which these kernels equal bit for bit.
+// the same operations as ops/aggregation.py asw_den_plain / asw_pass_plain /
+// asw_pass_win_plain, which these kernels equal bit for bit.  Indices into a
+// volume are 64-bit: a Middlebury-2014 volume holds 1.6e9 elements.
 //
 // Bound: memory.  One thread per output element, x fastest so that every
 // tap's loads are coalesced.  Each output reads 2T weights and T costs, but
@@ -51,7 +55,9 @@ __global__ void asw_den_kernel(const float* __restrict__ wl,
   den[i] = acc;
 }
 
-template <int AXIS>
+// MODE 1: vertical taps, rows clamped; 2: horizontal taps, columns clamped;
+// 3: vertical taps over a cost window of H + T - 1 real rows, no clamp.
+template <int MODE>
 __global__ void asw_pass_kernel(const float* __restrict__ cost,
                                 const float* __restrict__ wl,
                                 const float* __restrict__ wr,
@@ -68,15 +74,18 @@ __global__ void asw_pass_kernel(const float* __restrict__ cost,
   const int xr = max(x - d0 - d, 0);
   const float* l = wl + (long long)y * W + x;
   const float* r = wr + (long long)y * W + xr;
-  const float* c = cost + (long long)d * plane;
+  const long long rows = MODE == 3 ? H + T - 1 : H;  // rows of a cost plane
+  const float* c = cost + (long long)d * rows * W;
   float num = eps;
   for (int t = 0; t < T; ++t) {
     const float ww = l[t * plane] * r[t * plane];
     int ny = y, nx = x;
-    if (AXIS == 1) {
+    if (MODE == 1) {
       ny = min(max(y + t - R, 0), H - 1);
-    } else {
+    } else if (MODE == 2) {
       nx = min(max(x + t - R, 0), W - 1);
+    } else {
+      ny = y + t;
     }
     num = num + ww * c[(long long)ny * W + nx];
   }
@@ -119,6 +128,21 @@ extern "C" int asw_pass_f32(const float* cost, const float* wl,
       asw_pass_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(
           cost, wl, wr, den, out, T, H, W, D, d0, eps);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// cost_win: (D, H_out + T - 1, W) real rows; wl, wr: (T, H_out, W); den, out:
+// (D, H_out, W).  out row y reads cost_win rows y .. y + T - 1.  Returns
+// cudaGetLastError().
+extern "C" int asw_pass_win_f32(const float* cost_win, const float* wl,
+                                const float* wr, const float* den, float* out,
+                                int T, int H_out, int W, int D, int d0,
+                                float eps, void* stream) {
+  const long long n = (long long)D * H_out * W;
+  if (n > 0) {
+    asw_pass_kernel<3><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        cost_win, wl, wr, den, out, T, H_out, W, D, d0, eps);
   }
   return (int)cudaGetLastError();
 }

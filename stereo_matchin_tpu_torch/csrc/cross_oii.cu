@@ -20,12 +20,20 @@
 //   K5 per pixel and direction, dist = first .. first + L - 2: the arm
 //      (starting at 1) grows while the neighbour at dist lies in the frame
 //      and |nb - p| < tau on all three channels (f32); the first failure
-//      freezes it.  Equals ops/cross.py cross_arms (int32, bit for bit).
+//      freezes it.  Rows are anchored to the frame: the image holds frame
+//      rows row0 .. row0 + H - 1, the in-frame test runs on the global row
+//      clamp(row0 + y, 0, h_glob - 1) (a row past the frame border carries
+//      the border row's walk bounds), and the colours are read at the local
+//      row clamped to the image (edge replication).  row0 = 0, h_glob = H is
+//      the whole frame.  Equals ops/cross.py cross_arms (int32, bit for bit).
 //   K7 out[d,y,x] = sum_{j = -L..L, m <= j <= p, 1 <= i+j <= n-1}
 //                   vol[.., i+j] / (p - m),   j ascending,
 //      i = x (axis 2, h arms) or y (axis 1, v arms); m = max(minus_l[y,x],
 //      minus_r[y, max(x-d0-d, 0)]), p = min of the plus arms the same way
-//      -- for the v planes too.  Equals ops/oii.py oii_pass_plain.
+//      -- for the v planes too.  Axis 1 is anchored like K5: the bound
+//      1 <= i+j <= n-1 holds on the frame row row0 + y + j against h_glob,
+//      and taps outside the volume's own rows add nothing.  Equals
+//      ops/oii.py oii_pass_plain.
 //   K8 rc[d,y,x]  = #{j in [hm, hp] ∩ [-L, L] : idx[y, clamp(x+j)] == d}
 //      (h arms of (y, x); a border pixel is re-counted, CLAMP_TO_EDGE);
 //      mode[y,x]  = argmax_d sum_{i in [vm, vp] ∩ [-L, L]} rc[d, clamp(y+i), x]
@@ -43,8 +51,8 @@
 // to 2L+1 taps of neighbouring threads share cache lines (L1/L2).  K5 and
 // K8's mode run one thread per pixel; K8's mode reads D * (vp - vm + 1)
 // bytes per pixel through L1/L2.  Tiling through shared memory is later
-// work.  K5's row0/h_glob anchoring (bands and shards) comes with the
-// band drivers.
+// work.  The anchoring (row0, h_glob) serves the band drivers: a band's
+// window of rows gives every kept row the values of the whole frame.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,20 +68,23 @@ unsigned int blocks_for(long long n) {
 
 __global__ void cross_arms_kernel(const float* __restrict__ img,
                                   int* __restrict__ arms, int H, int W,
-                                  int arm_len, int first_dist, float tau) {
+                                  int arm_len, int first_dist, float tau,
+                                  int row0, int h_glob) {
   const long long HW = (long long)H * W;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= HW) return;
   const int x = (int)(p % W);
   const int y = (int)(p / W);
+  const int gy = min(max(row0 + y, 0), h_glob - 1);
   const float c0 = img[p * 3], c1 = img[p * 3 + 1], c2 = img[p * 3 + 2];
   const int dys[4] = {0, 0, -1, 1};
   const int dxs[4] = {-1, 1, 0, 0};
   for (int k = 0; k < 4; ++k) {
     int arm = 1;
     for (int dist = first_dist; dist < first_dist + arm_len - 1; ++dist) {
-      const int ny = y + dys[k] * dist, nx = x + dxs[k] * dist;
-      if (ny < 0 || ny > H - 1 || nx < 0 || nx > W - 1) break;
+      const int gny = gy + dys[k] * dist, nx = x + dxs[k] * dist;
+      if (gny < 0 || gny > h_glob - 1 || nx < 0 || nx > W - 1) break;
+      const int ny = min(max(y + dys[k] * dist, 0), H - 1);
       const float* nb = img + ((long long)ny * W + nx) * 3;
       if (!(fabsf(nb[0] - c0) < tau && fabsf(nb[1] - c1) < tau &&
             fabsf(nb[2] - c2) < tau)) {
@@ -90,7 +101,7 @@ __global__ void oii_pass_kernel(const float* __restrict__ vol,
                                 const int* __restrict__ arms_l,
                                 const int* __restrict__ arms_r,
                                 float* __restrict__ out, int D, int H, int W,
-                                int L, int d0) {
+                                int L, int d0, int row0, int h_glob) {
   const long long HW = (long long)H * W;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= HW * D) return;
@@ -102,15 +113,26 @@ __global__ void oii_pass_kernel(const float* __restrict__ vol,
   const int pm = AXIS == 2 ? 0 : 2;  // minus plane; the plus plane follows
   const int m = max(arms_l[pm * HW + pl], arms_r[pm * HW + pr]);
   const int p = min(arms_l[(pm + 1) * HW + pl], arms_r[(pm + 1) * HW + pr]);
-  const int n = AXIS == 2 ? W : H;
-  const int at = AXIS == 2 ? x : y;
-  const long long step = AXIS == 2 ? 1 : W;
-  const int lo = max(max(m, -L), 1 - at);
-  const int hi = min(min(p, L), n - 1 - at);
-  const float* src = vol + i;
   float acc = 0.0f;
-  for (int j = lo; j <= hi; ++j) {
-    acc = acc + src[j * step];
+  if (AXIS == 2) {
+    // Taps j with column x + j in 1 .. W-1.
+    const int lo = max(max(m, -L), 1 - x);
+    const int hi = min(min(p, L), W - 1 - x);
+    const float* src = vol + i;
+    for (int j = lo; j <= hi; ++j) {
+      acc = acc + src[j];
+    }
+  } else {
+    // Taps as volume rows r = y + j, ascending: rows of the volume whose
+    // frame row row0 + r lies in 1 .. h_glob-1.  (Written over r, not as
+    // max(-y, 1 - row0 - y) on j: nvcc 12.9 for sm_90a dropped that
+    // negation.)
+    const int r_lo = max(max(0, 1 - row0), y + max(m, -L));
+    const int r_hi = min(min(H - 1, h_glob - 1 - row0), y + min(p, L));
+    const float* col = vol + (i - (long long)y * W);
+    for (int r = r_lo; r <= r_hi; ++r) {
+      acc = acc + col[(long long)r * W];
+    }
   }
   out[i] = acc / (float)(p - m);
 }
@@ -163,34 +185,37 @@ __global__ void vote_v_kernel(const uint8_t* __restrict__ rc,
 
 }  // namespace
 
-// img: (H, W, 3) f32; arms: (4, H, W) int32.  Returns cudaGetLastError().
+// img: (H, W, 3) f32, frame rows row0 .. row0 + H - 1 of an h_glob-row
+// frame; arms: (4, H, W) int32.  Returns cudaGetLastError().
 extern "C" int cross_arms_f32(const float* img, int* arms, int H, int W,
                               int arm_len, int first_dist, float tau,
-                              void* stream) {
+                              int row0, int h_glob, void* stream) {
   const long long n = (long long)H * W;
   if (n > 0) {
     cross_arms_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        img, arms, H, W, arm_len, first_dist, tau);
+        img, arms, H, W, arm_len, first_dist, tau, row0, h_glob);
   }
   return (int)cudaGetLastError();
 }
 
 // vol, out: (D, H, W) f32, plane k = disparity d0 + k; arms_l, arms_r:
-// (4, H, W) int32; axis 2 = horizontal (h arms), 1 = vertical (v arms).
+// (4, H, W) int32; axis 2 = horizontal (h arms), 1 = vertical (v arms),
+// whose rows are frame rows row0 .. row0 + H - 1 of an h_glob-row frame.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for another axis.
 extern "C" int oii_pass_f32(const float* vol, const int* arms_l,
                             const int* arms_r, float* out, int D, int H,
-                            int W, int L, int d0, int axis, void* stream) {
+                            int W, int L, int d0, int axis, int row0,
+                            int h_glob, void* stream) {
   const long long n = (long long)D * H * W;
   cudaStream_t s = (cudaStream_t)stream;
   if (axis != 1 && axis != 2) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     if (axis == 2) {
       oii_pass_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(
-          vol, arms_l, arms_r, out, D, H, W, L, d0);
+          vol, arms_l, arms_r, out, D, H, W, L, d0, row0, h_glob);
     } else {
       oii_pass_kernel<1><<<blocks_for(n), kThreads, 0, s>>>(
-          vol, arms_l, arms_r, out, D, H, W, L, d0);
+          vol, arms_l, arms_r, out, D, H, W, L, d0, row0, h_glob);
     }
   }
   return (int)cudaGetLastError();

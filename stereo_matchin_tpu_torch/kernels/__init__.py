@@ -2,6 +2,8 @@
 
   K1 asw_aggregation.asw_den   — aggregation denominator
   K2 asw_aggregation.asw_pass  — one vertical or horizontal aggregation pass
+     asw_aggregation.asw_pass_win — its vertical form over a window of real
+                                  rows (the wavefront band driver)
   K3 wta_gather.two_min        — reference-view two-min WTA
   K4 wta_gather.wta_diag       — target-view epipolar two-min WTA
   K5 cross_oii.cross_arms      — adaptive cross arms
@@ -22,8 +24,9 @@ import torch
 
 # Launch count per kernel, incremented only where the kernel is launched
 # (never on the plain CPU route); asw_pass and oii_pass count their two
-# axes apart.
-ASW_KERNELS = ("asw_den", "asw_pass_v", "asw_pass_h", "two_min", "wta_diag")
+# axes apart, and the windowed vertical pass apart from both.
+ASW_KERNELS = ("asw_den", "asw_pass_v", "asw_pass_h", "asw_pass_win",
+               "two_min", "wta_diag")
 CROSS_KERNELS = ("cross_arms", "sad_volume", "oii_pass_h", "oii_pass_v",
                  "vote_h", "vote_v")
 LAUNCHES = dict.fromkeys(ASW_KERNELS + CROSS_KERNELS, 0)

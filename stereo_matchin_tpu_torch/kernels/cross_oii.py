@@ -28,8 +28,8 @@ from ..ops.vote import _check_arm_len, vote_counts_plain, vote_mode_plain
 def _lib():
     lib = library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cross_arms_f32.argtypes = [p, p, i, i, i, i, f, p]
-    lib.oii_pass_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.cross_arms_f32.argtypes = [p, p, i, i, i, i, f, i, i, p]
+    lib.oii_pass_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.vote_h_u8.argtypes = [p, p, p, i, i, i, i, p]
     lib.vote_v_i32.argtypes = [p, p, p, i, i, i, i, p]
     for fn in (lib.cross_arms_f32, lib.oii_pass_f32, lib.vote_h_u8,
@@ -46,34 +46,50 @@ def _check_arms(name: str, arms: torch.Tensor, H: int, W: int, device):
     check_tensor(name, arms, (4, H, W), dtype=torch.int32, device=device)
 
 
+def _frame_rows(h_glob, H: int) -> int:
+    """The frame's row count: h_glob, or the input's H rows by default."""
+    h_glob = H if h_glob is None else h_glob
+    if h_glob < 1:
+        raise ValueError(f"need h_glob >= 1, got {h_glob}")
+    return h_glob
+
+
 def cross_arms(img: torch.Tensor, arm_len: int = 25, tau: float = 0.10,
-               legacy_quirk: bool = True) -> torch.Tensor:
+               legacy_quirk: bool = True, row0: int = 0,
+               h_glob: int | None = None) -> torch.Tensor:
     """K5: img (H, W, 3) f32 -> (4, H, W) int32 arms [h-, h+, v-, v+],
-    minus arms negative; |nb - p| < tau compared in f32."""
+    minus arms negative; |nb - p| < tau compared in f32.  img holds frame
+    rows row0 .. row0 + H - 1 of an h_glob-row frame (default: the whole
+    frame); see ops/cross.py cross_arms."""
     if img.dim() != 3 or img.shape[2] != 3:
         raise ValueError(f"image must be (H, W, 3), got {tuple(img.shape)}")
     check_tensor("img", img, img.shape)
     if arm_len < 1:
         raise ValueError(f"need arm_len >= 1, got {arm_len}")
-    if img.device.type == "cpu":
-        return cross_arms_plain(img, arm_len, tau, legacy_quirk)
-    require_cuda(img)
     H, W = img.shape[:2]
+    h_glob = _frame_rows(h_glob, H)
+    if img.device.type == "cpu":
+        return cross_arms_plain(img, arm_len, tau, legacy_quirk, row0, h_glob)
+    require_cuda(img)
     arms = torch.empty((4, H, W), dtype=torch.int32, device=img.device)
     with torch.cuda.device(img.device):
         rc = _lib().cross_arms_f32(img.data_ptr(), arms.data_ptr(), H, W,
                                    arm_len, 3 if legacy_quirk else 2,
-                                   float(np.float32(tau)), _stream(img))
+                                   float(np.float32(tau)), row0, h_glob,
+                                   _stream(img))
     raise_on_error(rc, "cross_arms")
     LAUNCHES["cross_arms"] += 1
     return arms
 
 
 def oii_pass(vol: torch.Tensor, arms_l: torch.Tensor, arms_r: torch.Tensor,
-             arm_len: int, axis: int, d0: int = 0) -> torch.Tensor:
+             arm_len: int, axis: int, d0: int = 0, row0: int = 0,
+             h_glob: int | None = None) -> torch.Tensor:
     """K7: one OII windowed mean over vol (D, H, W) f32, plane k holding
     disparity d0 + k; axis 2 = horizontal (h arms), 1 = vertical (v arms).
-    arms_l, arms_r: (4, H, W) int32.  Returns (D, H, W) f32."""
+    arms_l, arms_r: (4, H, W) int32.  On axis 1 the rows are frame rows
+    row0 .. row0 + H - 1 of an h_glob-row frame (default: the whole frame;
+    see ops/oii.py oii_pass_plain).  Returns (D, H, W) f32."""
     if vol.dim() != 3:
         raise ValueError(f"vol must be (D, H, W), got {tuple(vol.shape)}")
     check_tensor("vol", vol, vol.shape)
@@ -84,14 +100,19 @@ def oii_pass(vol: torch.Tensor, arms_l: torch.Tensor, arms_r: torch.Tensor,
         raise ValueError(f"axis must be 1 (vertical) or 2 (horizontal), got {axis}")
     if d0 < 0 or arm_len < 1:
         raise ValueError(f"need d0 >= 0 and arm_len >= 1, got {d0}, {arm_len}")
+    if axis == 2 and (row0 != 0 or h_glob is not None):
+        raise ValueError("row0/h_glob anchor the vertical pass (axis 1) only")
+    h_glob = _frame_rows(h_glob, H)
     if vol.device.type == "cpu":
-        return oii_pass_plain(vol, arms_l, arms_r, arm_len, axis, d0)
+        return oii_pass_plain(vol, arms_l, arms_r, arm_len, axis, d0, row0,
+                              h_glob)
     require_cuda(vol, arms_l, arms_r)
     out = torch.empty_like(vol)
     with torch.cuda.device(vol.device):
         rc = _lib().oii_pass_f32(vol.data_ptr(), arms_l.data_ptr(),
                                  arms_r.data_ptr(), out.data_ptr(), D, H, W,
-                                 arm_len, d0, axis, _stream(vol))
+                                 arm_len, d0, axis, row0, h_glob,
+                                 _stream(vol))
     raise_on_error(rc, "oii_pass")
     LAUNCHES["oii_pass_h" if axis == 2 else "oii_pass_v"] += 1
     return out

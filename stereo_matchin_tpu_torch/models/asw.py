@@ -11,6 +11,12 @@ they are computed once (`asw_weights`) and handed to
 instead (convert.weights_from_jax).  Everything runs on the device of the
 input tensors; cfg.kernels picks the CUDA kernels or the plain ops for
 the aggregation and the WTAs (see kernels.use_kernels).
+
+cfg.aggr_d_chunks = n runs the SAD cost and the aggregation ladder per
+disparity chunk of ceil(D / n) planes (`_chunk_geometry`), so the (D, H, W)
+volumes of the ladder never coexist; `crop` sheds rows right after the
+aggregation for the band drivers (models/tiled.py, models/wavefront.py).
+Neither changes a value of the rows kept.
 """
 
 from __future__ import annotations
@@ -64,34 +70,105 @@ def asw_weights(left: torch.Tensor, right: torch.Tensor,
 def asw_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
                  crop: tuple = (0, 0)) -> ASWResult:
     """left/right: (H, W, 3) float32 in [0, 1] on the UNORM8 grid, on one
-    device (the ASW method never median-filters its inputs)."""
-    if tuple(crop) != (0, 0):
-        raise NotImplementedError(
-            "crop is not ported yet (ROADMAP A9, band drivers)")
+    device (the ASW method never median-filters its inputs).
+
+    crop=(top, bottom): drop that many rows right after the aggregation
+    (the JAX package's asw_pipeline_impl contract): the result covers rows
+    top .. H - bottom, and rows within k*radius + 1 of a cropped edge see
+    clamped refinement reads, so a band driver keeps only rows past them."""
     return asw_pipeline_from_weights(left, right, asw_weights(left, right, cfg),
-                                     cfg)
+                                     cfg, crop)
 
 
 def _to_image(d, cfg: StereoConfig):
     return ops.disparity_to_image(d, cfg.d_max, cfg.quantize_maps)
 
 
-def asw_pipeline_from_weights(left: torch.Tensor, right: torch.Tensor,
-                              weights: ASWWeights,
-                              cfg: StereoConfig) -> ASWResult:
-    """The pipeline after the weights: SAD cost -> aggregation -> WTA ->
-    consistency -> k refinement rounds -> median."""
-    if cfg.aggr_d_chunks:
-        raise NotImplementedError(
-            "aggr_d_chunks is not ported yet (ROADMAP A9, band drivers)")
+def _chunk_geometry(D: int, n_chunks: int):
+    """Chunks of ceil(D / n) planes; the last may be smaller (planes past D
+    are never computed).  Returns (chunk, number of chunks)."""
+    chunk = -(-D // max(n_chunks, 1))
+    return chunk, -(-D // chunk)
+
+
+def _check_pair(left, right):
     if left.shape != right.shape or left.dim() != 3 or left.shape[2] != 3:
         raise ValueError(f"need two (H, W, 3) images, got {tuple(left.shape)} "
                          f"and {tuple(right.shape)}")
+
+
+def ladder_levels(left: torch.Tensor, right: torch.Tensor, w: ASWWeights,
+                  cfg: StereoConfig):
+    """SAD cost -> r x (vertical, horizontal) passes (ops.asw_levels), per
+    disparity chunk (cfg.aggr_d_chunks; 0 = one chunk).  Each chunk builds
+    its cost planes d0 .. d0 + n - 1 from the images and runs the ladder
+    with its offset d0 (on CUDA: K1/K2 with d0).  Yields (d0, j, c) for
+    every chunk and level j = 0 .. r, c the chunk's (n, H, W) SAD cost
+    (j = 0) or output of level j."""
+    D = cfg.num_disp
+    chunk, _ = _chunk_geometry(D, cfg.aggr_d_chunks)
+    for d0 in range(0, D, chunk):
+        n = min(chunk, D - d0)
+        levels = ops.asw_levels(ops.sad_cost_volume(left, right, n, 255.0, d0),
+                                w.wv_l, w.wv_r, w.wh_l, w.wh_r, cfg.radius,
+                                cfg.r_iters, cfg.eps, kernels=cfg.kernels,
+                                d0=d0)
+        for j, c in enumerate(levels):
+            yield d0, j, c
+        # Free the chunk before the next chunk's SAD temporaries (the peak
+        # of a d-chunked frame, measured on the card).
+        del c
+
+
+def aggregate(left: torch.Tensor, right: torch.Tensor, weights: ASWWeights,
+              cfg: StereoConfig, crop: tuple = (0, 0)) -> torch.Tensor:
+    """The aggregated (D, H', W) volume (`ladder_levels`' last level); each
+    chunk sheds the crop rows before it lands in the result."""
+    _check_pair(left, right)
+    D, H, W = cfg.num_disp, left.shape[0], left.shape[1]
+    c_top, c_bot = crop
+    if c_top < 0 or c_bot < 0 or c_top + c_bot >= H:
+        raise ValueError(f"crop {tuple(crop)} leaves no rows of {H}")
+    out = None
+    for d0, j, c in ladder_levels(left, right, weights, cfg):
+        if j < cfg.r_iters:
+            continue
+        c = c[:, c_top:H - c_bot]
+        if c.shape[0] == D:                  # one chunk
+            return c.contiguous()
+        if out is None:
+            out = torch.empty((D, H - c_top - c_bot, W), dtype=c.dtype,
+                              device=c.device)
+        out[d0:d0 + c.shape[0]] = c
+        del c                                # see ladder_levels
+    return out
+
+
+def asw_pipeline_from_weights(left: torch.Tensor, right: torch.Tensor,
+                              weights: ASWWeights, cfg: StereoConfig,
+                              crop: tuple = (0, 0)) -> ASWResult:
+    """The pipeline after the weights: SAD cost -> aggregation -> WTA ->
+    consistency -> k refinement rounds -> median."""
+    aggr = aggregate(left, right, weights, cfg, crop)
+    return asw_postaggregate(aggr, weights, cfg, crop)
+
+
+def asw_postaggregate(aggr: torch.Tensor, weights: ASWWeights,
+                      cfg: StereoConfig, crop: tuple = (0, 0)) -> ASWResult:
+    """Everything after the aggregation: WTA -> consistency -> k refinement
+    rounds -> median (main.cpp:516-614); the JAX package's
+    asw_postaggregate_impl.  `aggr` is (D, H', W) with `crop` rows already
+    shed relative to the weights' H rows.  The refinement weights come from
+    the uncropped images and are cropped with the volume: computed on
+    cropped images they would be wrong within radius of the cut."""
     R, kern = cfg.radius, cfg.kernels
-    w = weights
-    cost0 = ops.sad_cost_volume(left, right, cfg.num_disp, scale=255.0)
-    aggr = ops.asw_aggregate(cost0, w.wv_l, w.wv_r, w.wh_l, w.wh_r, R,
-                             cfg.r_iters, cfg.eps, kernels=kern)
+    c_top, c_bot = crop
+    H = weights.rv_l.shape[1]
+    if aggr.shape[1] != H - c_top - c_bot:
+        raise ValueError(f"aggr has {aggr.shape[1]} rows; weights of {H} rows "
+                         f"cropped by {tuple(crop)} give {H - c_top - c_bot}")
+    rv_l, rh_l, rv_r, rh_r = (w[:, c_top:H - c_bot] for w in (
+        weights.rv_l, weights.rh_l, weights.rv_r, weights.rh_r))
 
     res = ops.wta_fast(aggr, big=cfg.big, kernels=kern)
     wta_left_img = _to_image(res.disp_ref, cfg)
@@ -104,9 +181,9 @@ def asw_pipeline_from_weights(left: torch.Tensor, right: torch.Tensor,
     filled_q, right_q = cons.filled, wta_right_img * cfg.d_max
     conf_ref, conf_tar = cons.conf_ref, cons.conf_target
     for _ in range(cfg.k_iters):
-        val_l, den_l = ops.refine_view(w.rv_l, w.rh_l, filled_q, conf_ref, R,
+        val_l, den_l = ops.refine_view(rv_l, rh_l, filled_q, conf_ref, R,
                                        cfg.eps)
-        val_r, den_r = ops.refine_view(w.rv_r, w.rh_r, right_q, conf_tar, R,
+        val_r, den_r = ops.refine_view(rv_r, rh_r, right_q, conf_tar, R,
                                        cfg.eps)
         r = ops.wta_refined_fast(aggr, val_l, den_l, val_r, den_r, cfg.penalty,
                                  big=cfg.big, kernels=kern)

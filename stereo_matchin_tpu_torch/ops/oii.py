@@ -11,7 +11,10 @@ Faithful quirks (all from the .cl sources, see the JAX module):
     v planes.
 
 `oii_pass_plain` (the "taps" form) is the plain version of the CUDA kernel
-K7 (kernels/cross_oii.py `oii_pass`), whose sum order it shares.
+K7 (kernels/cross_oii.py `oii_pass`), whose sum order it shares.  Its
+vertical pass takes `row0`/`h_glob` for a band of rows: the row quirks hold
+on frame rows, as in the JAX package's `parallel/cross_sharded.py`
+`_oii_vtaps_tiled`.
 """
 
 from __future__ import annotations
@@ -51,18 +54,26 @@ def combined_arms(arms_l, arms_r, num_disp: int, plane_minus: int,
     return minus, plus
 
 
-def _windowed_mean_taps(vol, minus_arm, plus_arm, arm_len: int, axis: int):
-    """sum_{j=-L..L, minus<=j<=plus, 1<=i+j<=n-1} vol[i+j] / (plus - minus),
-    as 2L+1 masked shifts added in j order (the JAX "taps" order)."""
+def _windowed_mean_taps(vol, minus_arm, plus_arm, arm_len: int, axis: int,
+                        row0: int = 0, h_glob: int | None = None):
+    """sum_{j=-L..L, minus<=j<=plus, 1<=g+j<=n-1} vol[i+j] / (plus - minus),
+    as 2L+1 masked shifts added in j order (the JAX "taps" order).  g is
+    the frame position of i: i itself, or row0 + i on axis 1, where n is
+    h_glob; taps outside the volume read zeros."""
     n = vol.shape[axis]
     idx = _positions(n, axis, vol.device)
     pad = (arm_len, arm_len) if axis == 2 else (0, 0, arm_len, arm_len)
     ext = F.pad(vol, pad)
+    if axis == 1:
+        idx = idx + row0
+        n_glob = n if h_glob is None else h_glob
+    else:
+        n_glob = n
     total = None
     for j in range(-arm_len, arm_len + 1):
         tap = ext.narrow(axis, arm_len + j, n)
         c = idx + j
-        m = (j >= minus_arm) & (j <= plus_arm) & (c >= 1) & (c <= n - 1)
+        m = (j >= minus_arm) & (j <= plus_arm) & (c >= 1) & (c <= n_glob - 1)
         term = torch.where(m, tap, 0.0)
         total = term if total is None else total + term
     return total / (plus_arm - minus_arm).to(vol.dtype)
@@ -76,13 +87,19 @@ def _arm_planes(axis: int):
 
 def oii_pass_plain(vol: torch.Tensor, arms_l: torch.Tensor,
                    arms_r: torch.Tensor, arm_len: int, axis: int,
-                   d0: int = 0) -> torch.Tensor:
+                   d0: int = 0, row0: int = 0,
+                   h_glob: int | None = None) -> torch.Tensor:
     """One windowed-mean pass over a (D, H, W) volume whose plane k holds
     disparity d0 + k; axis 2 = horizontal (h arms), 1 = vertical (v arms).
-    arms_l/arms_r: (4, H, W) int32 [h-, h+, v-, v+], minus negative."""
+    arms_l/arms_r: (4, H, W) int32 [h-, h+, v-, v+], minus negative.
+
+    On axis 1 the volume's rows are frame rows row0 .. row0 + H - 1 of an
+    h_glob-row frame (default: the whole frame): frame row 0 is dropped
+    and rows past h_glob - 1 are left out, in frame coordinates."""
     minus, plus = combined_arms(arms_l, arms_r, vol.shape[0],
                                 *_arm_planes(axis), d0)
-    return _windowed_mean_taps(vol, minus, plus, arm_len, axis).contiguous()
+    return _windowed_mean_taps(vol, minus, plus, arm_len, axis, row0,
+                               h_glob).contiguous()
 
 
 def cross_aggregate(cost: torch.Tensor, arms_l: torch.Tensor,

@@ -77,6 +77,36 @@ def test_run_writes_the_cross_artifacts(tmp_path, pics):
                                   res.median_left.numpy())
 
 
+def test_run_bands_writes_the_maps_of_the_whole_frame(tmp_path, pics, capsys):
+    """--bands 3 runs the band drivers (the wavefront at --arm_len 3) and
+    writes the disparity maps only, equal to the whole frame's; --bands 0
+    picks one band on the CPU."""
+    out = tmp_path / "out"
+    args = ["run", "--pics", str(pics), "--oii_impl", "taps", "--arm_len",
+            "3", "--aggr_d_chunks", "2"] + SMALL
+    assert main(args + ["--out", str(out), "--bands", "3"]) == 0
+    pair = out / "synthpair"
+    assert sorted(p.name for p in pair.iterdir()) == [
+        "asw_disparity.png", "cross_based_disparity.png",
+        "cross_based_initial.png"]
+    cfg = StereoConfig(d_max=15, radius=3, arm_len=3, r_iters=1, k_iters=1)
+    left = torch.from_numpy(png.read_rgb(str(tmp_path / "synthpair" / "l.png")))
+    right = torch.from_numpy(png.read_rgb(str(tmp_path / "synthpair" / "r.png")))
+    cross = cross_based.cross_pipeline(left, right, cfg)
+    for name, img in (("cross_based_initial.png", cross.initial),
+                      ("cross_based_disparity.png", cross.final),
+                      ("asw_disparity.png",
+                       asw.asw_pipeline(left, right, cfg).disparity)):
+        got = png.read_gray(str(pair / name))
+        np.testing.assert_array_equal(np.rint(got * 255).astype(np.int32),
+                                      tops.unorm8_code(img).numpy(),
+                                      err_msg=name)
+    assert main(args + ["--out", str(tmp_path / "auto"), "--bands", "0"]) == 0
+    assert "auto bands -> 1" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="bands"):
+        main(args + ["--out", str(out), "--bands", "-1"])
+
+
 def _run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,

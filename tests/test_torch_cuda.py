@@ -19,12 +19,13 @@ from stereo_matchin_tpu.config import TINY_CONFIG
 from stereo_matchin_tpu.eval import synthetic_scene
 from stereo_matchin_tpu_torch import kernels
 from stereo_matchin_tpu_torch import ops as tops
-from stereo_matchin_tpu_torch.kernels.asw_aggregation import asw_den, asw_pass
+from stereo_matchin_tpu_torch.kernels.asw_aggregation import (asw_den, asw_pass,
+                                                              asw_pass_win)
 from stereo_matchin_tpu_torch.kernels.cross_oii import (cross_arms, oii_pass,
                                                         vote_h, vote_v)
 from stereo_matchin_tpu_torch.kernels.sad_volume import sad_volume
 from stereo_matchin_tpu_torch.kernels.wta_gather import two_min, wta_diag
-from stereo_matchin_tpu_torch.models import asw, cross_based
+from stereo_matchin_tpu_torch.models import asw, cross_based, tiled
 from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
                                                    _two_min_plain)
 
@@ -94,12 +95,51 @@ def test_slice_through_kernels_equals_plain_ops_and_counts_launches():
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] for k in kernels.ASW_KERNELS} == {
         "asw_den": 2, "asw_pass_v": cfg.r_iters, "asw_pass_h": cfg.r_iters,
-        "two_min": cfg.k_iters + 1, "wta_diag": cfg.k_iters + 1}
+        "asw_pass_win": 0, "two_min": cfg.k_iters + 1,
+        "wta_diag": cfg.k_iters + 1}
     assert all(kernels.LAUNCHES[k] == 0 for k in kernels.CROSS_KERNELS)
     want = asw.asw_pipeline(left, right, cfg.replace(kernels="jnp"))
     assert kernels.LAUNCHES["two_min"] == cfg.k_iters + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("H,W,R,D,d0", [(40, 70, 4, 7, 0), (288, 384, 16, 61, 0),
+                                        (375, 450, 16, 57, 5)])
+def test_windowed_pass_kernel_bit_equal_to_plain(H, W, R, D, d0):
+    """The windowed vertical pass over rows [a, b) with R real margin rows
+    on each side: the kernel equals its plain version and the clamped pass
+    on the same rows."""
+    dev = cuda_device()
+    left, right = _pair(dev, H, W, seed=D)
+    cost = tops.sad_cost_volume(left, right, D, 255.0, d0)
+    wl, wr = (tops.support_weights(x, R, 30.91, 28.21, 0) for x in (left, right))
+    den = tops.asw_den_plain(wl, wr, EPS, d0, D)
+    a, b = R + 3, H - R - 5
+    win = cost[:, a - R:b + R].contiguous()
+    strips = [x[:, a:b].contiguous() for x in (wl, wr, den)]
+    got = _launched("asw_pass_win", asw_pass_win, win, *strips, EPS, d0)
+    assert max_ulp(got, tops.asw_pass_win_plain(win, *strips, EPS, d0)) == 0
+    full = tops.asw_pass_plain(cost, wl, wr, den, EPS, 1, d0)
+    assert max_ulp(got, full[:, a:b]) == 0
+
+
+@pytest.mark.parametrize("chunks", [0, 3])
+@pytest.mark.parametrize("wf", [True, False], ids=["wavefront", "halo"])
+def test_asw_band_drivers_through_kernels_equal_whole_frame(chunks, wf):
+    dev = cuda_device()
+    cfg = TINY_CONFIG.replace(aggr_d_chunks=chunks)
+    left, right = _pair(dev, 72, 64, seed=4)
+    whole = asw.asw_pipeline(left, right, cfg)
+    kernels.reset_launches()
+    got = tiled.asw_pipeline_tiled(left, right, cfg, 3, wavefront=wf)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], whole.disparity)
+    assert torch.equal(got[1], whole.filled)
+    assert (kernels.LAUNCHES["asw_pass_win"] > 0) == wf
+    plain = tiled.asw_pipeline_tiled(left, right, cfg.replace(kernels="jnp"),
+                                     3, wavefront=wf)
+    assert torch.equal(plain[0], got[0]) and torch.equal(plain[1], got[1])
 
 
 # --- the cross method: K5-K8 ------------------------------------------------
@@ -187,3 +227,42 @@ def test_cross_slice_through_kernels_equals_plain_ops_and_counts_launches():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
+
+
+# (row0, rows) windows of a 375-row frame: inside it, and 9 rows past its
+# bottom (edge-replicated rows).
+ANCHORED = [(100, 140), (250, 134)]
+
+
+@pytest.mark.parametrize("row0,rows", ANCHORED)
+@pytest.mark.parametrize("quirk", [True, False])
+def test_anchored_cross_kernels_equal_plain(row0, rows, quirk):
+    """K5 and K7's vertical pass on a window of frame rows (row0, h_glob)."""
+    dev = cuda_device()
+    H, W, D, L = 375, 450, 57, 25
+    ml, mr = _scene(dev, H, W, 60)
+    idx = torch.arange(row0, row0 + rows, device=dev).clamp_(max=H - 1)
+    wl, wr = ml[idx].contiguous(), mr[idx].contiguous()
+    al = _launched("cross_arms", cross_arms, wl, L, 0.10, quirk, row0, H)
+    assert torch.equal(al, tops.cross_arms(wl, L, 0.10, quirk, row0, H))
+    ar = tops.cross_arms(wr, L, 0.10, quirk, row0, H)
+    temp = tops.oii_pass_plain(tops.sad_cost_volume(wl, wr, D, 1.0, 5), al,
+                               ar, L, 2, 5)
+    out = _launched("oii_pass_v", oii_pass, temp, al, ar, L, 1, 5, row0, H)
+    assert max_ulp(out, tops.oii_pass_plain(temp, al, ar, L, 1, 5, row0,
+                                            H)) == 0
+
+
+@pytest.mark.parametrize("wf", [True, False], ids=["wavefront", "halo"])
+def test_cross_band_drivers_through_kernels_equal_whole_frame(wf):
+    dev = cuda_device()
+    cfg = TINY_CONFIG.replace(arm_len=4)
+    left, right = _scene(dev, 96, 80, cfg.d_max)
+    whole = cross_based.cross_pipeline(left, right, cfg)
+    got = tiled.cross_pipeline_tiled(left, right, cfg, 3, wavefront=wf)
+    assert torch.equal(got[0], whole.initial)
+    assert torch.equal(got[1], whole.final)
+    taps = tiled.cross_pipeline_tiled(left, right,
+                                      cfg.replace(oii_impl="taps"), 3,
+                                      wavefront=wf)
+    assert torch.equal(taps[0], got[0]) and torch.equal(taps[1], got[1])

@@ -171,6 +171,9 @@ def test_tiny_config_bit_equal_on_jax_weights(cfg):
 
 
 def test_cpu_routes_agree_and_unported_options_raise():
+    """The CPU routes give the same bits, the disparity chunks (ported with
+    the band drivers) change none, and the kernels cannot be demanded of a
+    CPU tensor; a crop that leaves no row is refused."""
     cfg = TINY_CONFIG
     left, right, _, _ = synthetic_scene(np.random.default_rng(6), 24, 32,
                                         cfg.d_max)
@@ -179,12 +182,13 @@ def test_cpu_routes_agree_and_unported_options_raise():
     plain = tasw.asw_pipeline(left, right, cfg.replace(kernels="jnp"))
     for a, b in zip(auto, plain):
         assert torch.equal(a, b)
+    chunked = tasw.asw_pipeline(left, right, cfg.replace(aggr_d_chunks=2))
+    for a, b in zip(auto, chunked):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="pallas"):
         tasw.asw_pipeline(left, right, cfg.replace(kernels="pallas"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tasw.asw_pipeline(left, right, cfg.replace(aggr_d_chunks=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tasw.asw_pipeline(left, right, cfg, crop=(2, 2))
+    with pytest.raises(ValueError, match="crop"):
+        tasw.asw_pipeline(left, right, cfg, crop=(12, 12))
 
 
 def test_weights_from_jax_validates():
