@@ -7,7 +7,8 @@ sm_90a), nvcc and PyTorch built for CUDA:
     python3 chip_smoke.py
 
 It builds the CUDA kernels K1-K8 from `stereo_matchin_tpu_torch/csrc`,
-holds each against its plain PyTorch version on the card, drives the ASW
+holds each against its plain PyTorch version on the card (K1/K2 also at
+the edge shapes of their tile plans), drives the ASW
 and the cross-based pipelines at REFERENCE_CONFIG on the committed
 fixture pair through the kernels and through the plain ops, checks the
 launch counts of each path and its output against the JAX package's
@@ -18,8 +19,11 @@ disparity chunks against the whole frame (kernels and plain ops), every
 kernel against its plain version at BASELINE config 3's shapes (2880x1988,
 280 disparities), both methods at config 3 whole, wavefront-banded and
 halo-banded, bit-equal, with times and peak device memory held against
-the band plan, and `run --bands 3`.  Any failed check raises; the last line of a
-passing run is
+the band plan, and `run --bands 3`.  Before the last line it prints one
+JSON object with each kernel's launches on its path, largest error against
+its plain version, time, plain time and least time (`bound_ms`, from the
+bytes and operations of the timed call at the H100's HBM and float32
+peaks).  Any failed check raises; the last line of a passing run is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -87,6 +91,18 @@ KERNELS = [
 # package runs it at.
 CONFIG3_HW = (1988, 2880)
 CONFIG3_BANDS = 5
+# Edge shapes of the aggregation kernels' tile plans, (T, H, W, D, d0): W off
+# the tile width and D off the group, W under one tile, d0 >= W (every read
+# clamps to column 0), the compiled-in T = 33 with a short group, a
+# 150-wide frame at T = 33 past its last tile, and T = 61 (radius 30),
+# whose vertical tiles have their rows halved.
+AGGREGATION_EDGES = [(3, 13, 150, 11, 0), (5, 9, 20, 7, 3), (5, 17, 40, 9, 45),
+                     (33, 20, 70, 13, 2), (33, 29, 150, 21, 160),
+                     (61, 26, 70, 9, 4)]
+# NVIDIA H100 SXM peaks (NVIDIA's datasheet): HBM bytes per second and
+# float32 operations per second outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def phase(title: str) -> None:
@@ -157,6 +173,25 @@ def compare(name, got, want, stats):
                              f"by {worst} ulp (expected bit-equal)")
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def record_work(stats, name, moved, ops):
+    """The least work of the call that was timed: bytes read once and
+    written once, and operations, from this run's tensors."""
+    stats[name]["bytes"] = int(moved)
+    stats[name]["ops"] = int(ops)
+
+
+def bound(entry):
+    """(bound_ms, bound_by): the larger of bytes over HBM_BYTES_PER_S and
+    operations over FP32_OPS_PER_S."""
+    t_bytes = entry["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = entry["ops"] / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def random_pair(rng, H, W):
     import torch
 
@@ -170,7 +205,7 @@ def scene_pair(seed, H, W, d_max):
     card."""
     import torch
 
-    from stereo_matchin_tpu.eval import synthetic_scene
+    from stereo_matchin_tpu_torch.eval import synthetic_scene
 
     left, right, _, _ = synthetic_scene(np.random.default_rng(seed), H, W,
                                         d_max)
@@ -235,8 +270,55 @@ def check_kernels(pairs, cfg, stats):
     torch.cuda.synchronize()
 
 
+def check_aggregation_edges(stats):
+    """K1, K2 (both axes) and the windowed K2 against their plain versions
+    at the tile plans' edge shapes (AGGREGATION_EDGES), 0 ulp."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import asw_aggregation as ka
+
+    rng = np.random.default_rng(17)
+    eps = 1e-5
+    for T, H, W, D, d0 in AGGREGATION_EDGES:
+        def card(*shape, hi=1.0):
+            a = rng.uniform(0.01, hi, shape).astype(np.float32)
+            return torch.from_numpy(a).cuda()
+
+        wl, wr = card(T, H, W), card(T, H, W)
+        cost, win = card(D, H, W, hi=765.0), card(D, H + T - 1, W, hi=765.0)
+        tag = f"T={T} {H}x{W} D={D} d0={d0}"
+        den = ops.asw_den_plain(wl, wr, eps, d0, D)
+        compare(f"asw_den edge {tag}", [ka.asw_den(wl, wr, eps, d0, D)],
+                [den], stats["asw_den"])
+        for axis, key in ((1, "asw_pass_v"), (2, "asw_pass_h")):
+            compare(f"{key} edge {tag}",
+                    [ka.asw_pass(cost, wl, wr, den, eps, axis, d0)],
+                    [ops.asw_pass_plain(cost, wl, wr, den, eps, axis, d0)],
+                    stats[key])
+        compare(f"asw_pass_win edge {tag}",
+                [ka.asw_pass_win(win, wl, wr, den, eps, d0)],
+                [ops.asw_pass_win_plain(win, wl, wr, den, eps, d0)],
+                stats["asw_pass_win"])
+    torch.cuda.synchronize()
+
+
+def aggregation_work(kind, T, H, W, D, rows=None):
+    """(bytes, ops) of one K1/K2 launch: the strips (2 T H W floats) read
+    once, the cost (D x rows x W), den and output (D H W) once each; 2 T
+    operations per K1 output, 3 T + 1 per K2 output (mul, mul, add; the
+    divide)."""
+    strips, vol = 2 * T * H * W * 4, D * H * W * 4
+    if kind == "den":
+        return strips + vol, 2 * T * D * H * W
+    return (strips + D * (rows or H) * W * 4 + 2 * vol,
+            (3 * T + 1) * D * H * W)
+
+
 def time_kernels(left, right, cfg, stats, smi):
     """Kernel and plain-version device times at the main path's shapes."""
+    import torch
+
     from stereo_matchin_tpu_torch import ops
     from stereo_matchin_tpu_torch.kernels import asw_aggregation as ka
     from stereo_matchin_tpu_torch.kernels import wta_gather as kw
@@ -263,6 +345,21 @@ def time_kernels(left, right, cfg, stats, smi):
         "wta_diag": (lambda: kw.wta_diag(cost, d1, sc, ct, cfg.big),
                      lambda: _diag_two_min_plain(cost, d1, sc, ct, cfg.big)),
     }
+    D_, H, W = cost.shape
+    T = 2 * R + 1
+    for name in ("asw_den", "asw_pass_v", "asw_pass_h"):
+        record_work(stats, name, *aggregation_work(
+            "den" if name == "asw_den" else "pass", T, H, W, D_))
+    # K3 reads every plane, K4 the diagonal b in [d1 - min(d1, x), d1] of
+    # each pixel; both read the penalty maps and write their outputs; ops:
+    # |ct - d|, * sc, + cost and three compares per element read.
+    xs = torch.arange(W, device=cost.device)[None, :]
+    diag = int((torch.minimum(d1, xs) + 1).sum())
+    maps = nbytes(sc, ct)
+    record_work(stats, "two_min", nbytes(cost) + maps + 3 * H * W * 4,
+                7 * D_ * H * W)
+    record_work(stats, "wta_diag", diag * 4 + nbytes(d1) + maps + 4 * H * W * 4,
+                7 * diag)
     for name, (kern, plain) in cases.items():
         # plain, kernel, kernel, plain: the first plain warms the allocator.
         p1 = cuda_ms(plain, 5)
@@ -364,6 +461,23 @@ def time_cross_kernels(left, right, cfg, stats, smi):
         "vote_v": (lambda: kc.vote_v(rc, al, L),
                    lambda: ops.vote_mode_plain(rc, al, L)),
     }
+    # Window lengths of this run's arms, [minus, plus] within [-L, L]: an
+    # OII or vote pass adds at most that many values per output (the OII's
+    # combined arms are no longer than the left ones).
+    H, W = ml.shape[:2]
+    win_h = al[0].abs().clamp(max=L) + al[1].abs().clamp(max=L) + 1
+    win_v = al[2].abs().clamp(max=L) + al[3].abs().clamp(max=L) + 1
+    vol = nbytes(cost)
+    record_work(stats, "cross_arms", nbytes(ml) + nbytes(al),
+                8 * int((al.abs() + 1).sum()))
+    record_work(stats, "sad_volume", nbytes(ml, mr) + vol, 14 * D * H * W)
+    record_work(stats, "oii_pass_h", 2 * vol + nbytes(al, ar),
+                D * (int(win_h.sum()) + H * W))
+    record_work(stats, "oii_pass_v", 2 * vol + nbytes(al, ar),
+                D * (int(win_v.sum()) + H * W))
+    record_work(stats, "vote_h", nbytes(idx, al) + nbytes(rc), int(win_h.sum()))
+    record_work(stats, "vote_v", nbytes(rc, al) + H * W * 4,
+                D * (int(win_v.sum()) + H * W))
     for name, (kern, plain) in cases.items():
         p1 = cuda_ms(plain, 5)
         k1 = cuda_ms(kern, 20)
@@ -473,6 +587,12 @@ def band_kernels_config3(left, right, cfg, stats, smi):
     d1 = _two_min_plain(tail)[2]
     chunk_at = f"D={chunk} d0={d0}, {H} rows"
     tail_at = f"D={D}, rows {t0}..{t1}"
+    T = 2 * R + 1
+    record_work(stats, "asw_den_chunk", *aggregation_work("den", T, H, W, chunk))
+    for name in ("asw_pass_v_chunk", "asw_pass_h_chunk"):
+        record_work(stats, name, *aggregation_work("pass", T, H, W, chunk))
+    record_work(stats, "asw_pass_win", *aggregation_work(
+        "pass", T, b - a, W, chunk, rows=b - a + 2 * R))
     # (name, where, kernel, plain version, timed): K3/K4 keep their times
     # at 288x384 (phase 3).
     cases = [
@@ -877,6 +997,7 @@ def main() -> int:
     phase("3. kernels against their plain versions on the card")
     stats = {k[0]: {} for k in KERNELS}
     check_kernels(pairs, cfg, stats)
+    check_aggregation_edges(stats)
     time_kernels(left, right, cfg, stats, smi)
 
     phase("4. ASW slice at REFERENCE_CONFIG: kernels against plain ops")
@@ -999,7 +1120,7 @@ def main() -> int:
     phase("11. run CLI (--method both) on PNG files")
     if importlib.util.find_spec("PIL") is None:
         raise AssertionError("no PNG codec: PIL is not installed")
-    from stereo_matchin_tpu.io import png
+    from stereo_matchin_tpu_torch.io import png
     from stereo_matchin_tpu_torch.__main__ import main as cli
 
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
@@ -1076,12 +1197,20 @@ def main() -> int:
     path_launches = {
         "asw": launches, "cross": cross_launches,
         "bands": band_launches["wavefront"]}
-    report = {"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": path_launches[path][key],
-         "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
-        for name, source, replaces, key, path in KERNELS]}
+    report = {"kernels": []}
+    for name, source, replaces, key, path in KERNELS:
+        bound_ms, bound_by = bound(stats[name])
+        report["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": path_launches[path][key],
+            "max_abs_err": stats[name]["max_abs_err"],
+            "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # No single PyTorch call computes any of these functions (the
+            # weights differ per tap and plane, the order of the f32 sums
+            # is fixed, the arms and votes have no library form), so none
+            # is timed; PERF.md section 6 gives the reason per kernel.
+            "library_ms": None})
     for entry in report["kernels"]:
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']}: no launch on its path")

@@ -1,8 +1,9 @@
 """stereo_matchin_tpu_torch — the PyTorch + CUDA port of `stereo_matchin_tpu`.
 
-The JAX package beside it is the reference this port is tested against.
-The port shares its JAX-free modules (`stereo_matchin_tpu.config`, `.io`,
-`.eval`) and never imports jax.
+The JAX package beside it is the reference this port is tested against;
+the port imports neither jax nor anything of that package.  It keeps its
+own configuration (`config`), PNG I/O and pair registry (`io`) and
+synthetic scenes (`eval`), held equal to the JAX package's by the tests.
 
 Layering, module for module as in the JAX package:
   ops       — plain PyTorch ops, (D, H, W) / (T, H, W) layouts
@@ -11,8 +12,9 @@ Layering, module for module as in the JAX package:
   models    — the ASW and cross-based pipelines end to end
               (models.asw, models.cross_based)
   convert   — carries the JAX package's weight strips into the port
+  config, io, eval — StereoConfig, PNG I/O and pics.txt, synthetic scenes
 """
 
-from stereo_matchin_tpu.config import REFERENCE_CONFIG, StereoConfig, TINY_CONFIG
+from .config import REFERENCE_CONFIG, StereoConfig, TINY_CONFIG
 
 __all__ = ["REFERENCE_CONFIG", "StereoConfig", "TINY_CONFIG"]

@@ -1,10 +1,15 @@
 """Command-line interface of the PyTorch port (the `run` command).
 
-  python -m stereo_matchin_tpu_torch run --pairs tsukuba --out out/
-  python -m stereo_matchin_tpu_torch run --pics pics.txt --method cross --device cuda
+  STEREO_REFERENCE_ROOT=<reference checkout> \
+      python -m stereo_matchin_tpu_torch run --pairs tsukuba --out out/
+  python -m stereo_matchin_tpu_torch run --pics pics.txt --method cross --device cpu
+
+It runs on the card (`cuda`) unless --device names another device; with
+no card and no --device it exits with an error instead of computing on
+the CPU.
 
 `run` writes the reference's artifacts into <out>/<pair>/, through
-`stereo_matchin_tpu.io.png`: for the cross-based method
+the port's `io.png`: for the cross-based method
 cross_based_initial.png, cross_based_disparity.png and median.png; for the
 ASW method asw_disparity.png, asw_consistency_pre-reff.png and
 asw_consistency_post-reff.png.  --method both (the default) writes all six.
@@ -26,7 +31,7 @@ import time
 
 
 def _config_from_args(args):
-    from stereo_matchin_tpu.config import StereoConfig
+    from .config import StereoConfig
 
     kw = {f: getattr(args, f) for f in ("d_max", "radius", "arm_len",
                                         "r_iters", "k_iters", "aggr_d_chunks",
@@ -36,19 +41,24 @@ def _config_from_args(args):
 
 
 def _resolve_pairs(args):
-    from stereo_matchin_tpu.io import REGISTRY, parse_pics_txt
+    from .io import REGISTRY, parse_pics_txt
 
     if args.pics:
         return parse_pics_txt(args.pics)
-    return [REGISTRY[n] for n in (args.pairs or ["tsukuba"])]
+    names = args.pairs or ["tsukuba"]
+    unknown = [n for n in names if n not in REGISTRY]
+    if unknown:
+        raise SystemExit(f"unknown pairs {unknown}; registered: {list(REGISTRY)}")
+    try:
+        return [REGISTRY[n] for n in names]
+    except LookupError as e:
+        raise SystemExit(f"stereo_matchin_tpu_torch: {e}") from None
 
 
 def cmd_run(args) -> int:
     import torch
 
-    from stereo_matchin_tpu.io import png
-    from stereo_matchin_tpu.io.datasets import safe_pair_name
-
+    from .io import png, safe_pair_name
     from .models import asw, cross_based, tiled
 
     cfg = _config_from_args(args)
@@ -101,7 +111,8 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     p_run = sub.add_parser("run", help="run the pipelines, write PNG artifacts")
     p_run.add_argument("--pairs", nargs="*", default=None,
-                       help="registered pair names (default: tsukuba)")
+                       help="registered pair names (default: tsukuba), read "
+                            "under $STEREO_REFERENCE_ROOT")
     p_run.add_argument("--pics", default=None,
                        help="reference-format pics.txt with pair paths")
     p_run.add_argument("--out", default="out")
@@ -125,14 +136,17 @@ def main(argv=None) -> int:
                        help="cross: auto = CUDA kernels on a CUDA device, taps "
                             "elsewhere; taps / prefix = plain PyTorch ops; "
                             "pallas = demand the CUDA kernels")
-    p_run.add_argument("--device", default=None,
-                       help="torch device (default: cuda if available, else cpu)")
+    p_run.add_argument("--device", default="cuda",
+                       help="torch device (default: cuda; pass cpu to run "
+                            "the plain ops on the host)")
     p_run.set_defaults(fn=cmd_run)
     args = ap.parse_args(argv)
-    if args.device is None:
+    if args.device.startswith("cuda"):
         import torch
 
-        args.device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise SystemExit("stereo_matchin_tpu_torch: no CUDA device is "
+                             "available; pass --device cpu to run on the host")
     return args.fn(args)
 
 

@@ -19,8 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from stereo_matchin_tpu.config import StereoConfig
-
+from ..config import StereoConfig
 from .. import ops
 from ..kernels import oii_route
 

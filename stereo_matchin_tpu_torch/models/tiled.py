@@ -27,8 +27,7 @@ from typing import Callable
 
 import torch
 
-from stereo_matchin_tpu.config import StereoConfig
-
+from ..config import StereoConfig
 from . import asw as asw_mod
 from . import cross_based as cross_mod
 

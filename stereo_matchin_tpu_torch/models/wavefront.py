@@ -42,8 +42,7 @@ from dataclasses import dataclass
 
 import torch
 
-from stereo_matchin_tpu.config import StereoConfig
-
+from ..config import StereoConfig
 from .. import ops
 from ..kernels import use_kernels
 from . import asw as asw_mod

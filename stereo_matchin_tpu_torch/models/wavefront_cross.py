@@ -30,8 +30,7 @@ import math
 
 import torch
 
-from stereo_matchin_tpu.config import StereoConfig
-
+from ..config import StereoConfig
 from .. import ops
 from ..kernels import oii_route
 from .wavefront import _Geom

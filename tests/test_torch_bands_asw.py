@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_matchin_tpu import REFERENCE_CONFIG, StereoConfig
 from stereo_matchin_tpu.kernels.asw_aggregation_dres import asw_vpass_dres_win
 from stereo_matchin_tpu.models import tiled as jtiled
 from stereo_matchin_tpu.models import wavefront as jwf
@@ -32,14 +31,15 @@ from stereo_matchin_tpu_torch.models import asw as tasw
 from stereo_matchin_tpu_torch.models import tiled, wavefront
 
 from .test_torch_pipeline_asw import jax_strips
-from .torch_support import max_ulp, n, t, unorm8_pair
+from .torch_support import config_pair, max_ulp, n, t, unorm8_pair
 
 # The sizes of tests/test_wavefront.py: keep = k*R + 1 = 5, so the strip
 # windows need bands of at least 10 rows.
-CFG = StereoConfig(d_max=11, radius=2, arm_len=3, r_iters=3, k_iters=2,
-                   aggr_d_chunks=2)
-CONFIG3 = StereoConfig(d_max=279, radius=16, r_iters=7, k_iters=6,
-                       aggr_d_chunks=4)
+SMALL = dict(d_max=11, radius=2, arm_len=3, r_iters=3, k_iters=2,
+             aggr_d_chunks=2)
+CONFIG3_KW = dict(d_max=279, radius=16, r_iters=7, k_iters=6, aggr_d_chunks=4)
+JAX_CFG, CFG = config_pair(**SMALL)
+CONFIG3 = config_pair(**CONFIG3_KW)[1]
 FMA = dict(rtol=3e-6, atol=1e-6)
 
 
@@ -133,7 +133,7 @@ def jax_weights(monkeypatch):
 def test_wavefront_equals_jax_wavefront(pair, jax_weights):
     left, right = pair
     want = jwf.asw_pipeline_wavefront(jnp.asarray(left), jnp.asarray(right),
-                                      CFG.replace(kernels="pallas"), 3,
+                                      JAX_CFG.replace(kernels="pallas"), 3,
                                       interpret=True)
     got = wavefront.asw_pipeline_wavefront(t(left), t(right), CFG, 3)
     for g, w in zip(got, want):
@@ -143,21 +143,22 @@ def test_wavefront_equals_jax_wavefront(pair, jax_weights):
 def test_halo_bands_equal_jax_halo_bands(pair, jax_weights):
     left, right = pair
     want = jtiled.asw_pipeline_tiled(jnp.asarray(left), jnp.asarray(right),
-                                     CFG, 2, wavefront=False)
+                                     JAX_CFG, 2, wavefront=False)
     got = tiled.asw_pipeline_tiled(t(left), t(right), CFG, 2, wavefront=False)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(n(g), np.asarray(w))
 
 
-@pytest.mark.parametrize("cfg", [CFG, CFG.replace(r_iters=1), REFERENCE_CONFIG,
-                                 CONFIG3],
+@pytest.mark.parametrize("kw", [SMALL, dict(SMALL, r_iters=1), {},
+                                CONFIG3_KW],
                          ids=["small", "r1", "reference", "config3"])
-def test_plan_bands_equals_jax(cfg):
+def test_plan_bands_equals_jax(kw):
+    jcfg, cfg = config_pair(**kw)
     for H in list(range(8, 130, 3)) + [288, 375, 400, 450, 1988]:
         for bands in range(1, 8):
             for align in (128, 8):
                 got = wavefront.plan_bands(H, bands, cfg, align)
-                want = jwf.plan_bands(H, bands, cfg, align)
+                want = jwf.plan_bands(H, bands, jcfg, align)
                 if want is None:
                     assert got is None, (H, bands, align)
                     continue

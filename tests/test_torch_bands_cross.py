@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_matchin_tpu import REFERENCE_CONFIG, StereoConfig
 from stereo_matchin_tpu.eval import synthetic_scene
 from stereo_matchin_tpu.kernels.cross_oii import (cross_arms_pallas,
                                                   oii_vpass_pallas)
@@ -26,19 +25,20 @@ from stereo_matchin_tpu.models import wavefront_cross as jwfc
 from stereo_matchin_tpu.ops.oii import combined_arms
 from stereo_matchin_tpu.parallel.cross_sharded import (_cross_arms_tiled,
                                                        _oii_vtaps_tiled)
-from stereo_matchin_tpu_torch import kernels
+from stereo_matchin_tpu_torch import REFERENCE_CONFIG, StereoConfig, kernels
 from stereo_matchin_tpu_torch import ops as tops
 from stereo_matchin_tpu_torch.kernels.cross_oii import cross_arms, oii_pass
 from stereo_matchin_tpu_torch.models import cross_based as tcross
 from stereo_matchin_tpu_torch.models import tiled, wavefront_cross
 
 from .test_torch_pipeline_cross import gen
-from .torch_support import n, t
+from .torch_support import config_pair, n, t
 
 # The sizes of tests/test_wavefront.py's cross cases: bands of at least
 # 2L + 2 = 8 rows.
-CFG = StereoConfig(d_max=7, radius=2, arm_len=3, r_iters=2, k_iters=2,
-                   oii_impl="taps")
+SMALL = dict(d_max=7, radius=2, arm_len=3, r_iters=2, k_iters=2,
+             oii_impl="taps")
+JAX_CFG, CFG = config_pair(**SMALL)
 
 
 @pytest.fixture(scope="module")
@@ -124,11 +124,12 @@ def test_bottom_rows_vote_with_the_last_rows_arms(monkeypatch):
 def test_equals_jax_band_drivers(pair, bands):
     left, right = pair
     jl, jr = jnp.asarray(left), jnp.asarray(right)
-    want = jwfc.cross_pipeline_wavefront(jl, jr, CFG, bands)
+    want = jwfc.cross_pipeline_wavefront(jl, jr, JAX_CFG, bands)
     got = wavefront_cross.cross_pipeline_wavefront(t(left), t(right), CFG,
                                                    bands)
     _assert_maps_equal(got, want)
-    want = jtiled.cross_pipeline_tiled(jl, jr, CFG, bands, wavefront=False)
+    want = jtiled.cross_pipeline_tiled(jl, jr, JAX_CFG, bands,
+                                       wavefront=False)
     got = tiled.cross_pipeline_tiled(t(left), t(right), CFG, bands,
                                      wavefront=False)
     _assert_maps_equal(got, want)
@@ -149,14 +150,14 @@ def test_reference_config_3_bands_equal_fixture(wf):
                                           err_msg=name)
 
 
-@pytest.mark.parametrize("cfg", [CFG, REFERENCE_CONFIG,
-                                 StereoConfig(d_max=279, arm_len=17)],
+@pytest.mark.parametrize("kw", [SMALL, {}, dict(d_max=279, arm_len=17)],
                          ids=["small", "reference", "arm17"])
-def test_plan_bands_cross_equals_jax(cfg):
+def test_plan_bands_cross_equals_jax(kw):
+    jcfg, cfg = config_pair(**kw)
     for H in list(range(8, 200, 3)) + [288, 375, 1988]:
         for bands in range(1, 9):
             got = wavefront_cross.plan_bands_cross(H, bands, cfg)
-            want = jwfc.plan_bands_cross(H, bands, cfg)
+            want = jwfc.plan_bands_cross(H, bands, jcfg)
             if want is None:
                 assert got is None, (H, bands)
                 continue

@@ -1,5 +1,6 @@
-"""The port's `run` CLI on the CPU, and chip_smoke.py's refusal to report
-a result without a card."""
+"""The port's `run` CLI on the CPU (asked for with --device cpu), its
+refusal to fall back to the CPU without a card, and chip_smoke.py's
+refusal to report a result without a card."""
 
 from __future__ import annotations
 
@@ -13,10 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_matchin_tpu import StereoConfig, TINY_CONFIG
-from stereo_matchin_tpu.eval import synthetic_scene
-from stereo_matchin_tpu.io import png
+from stereo_matchin_tpu_torch import StereoConfig, TINY_CONFIG
 from stereo_matchin_tpu_torch import ops as tops
+from stereo_matchin_tpu_torch.eval import synthetic_scene
+from stereo_matchin_tpu_torch.io import png
 from stereo_matchin_tpu_torch.__main__ import main
 from stereo_matchin_tpu_torch.models import asw, cross_based
 
@@ -105,6 +106,45 @@ def test_run_bands_writes_the_maps_of_the_whole_frame(tmp_path, pics, capsys):
     assert "auto bands -> 1" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="bands"):
         main(args + ["--out", str(out), "--bands", "-1"])
+
+
+def test_run_without_a_card_fails_unless_the_cpu_is_asked_for(
+        tmp_path, pics, monkeypatch):
+    """No --device means the card: without one, `run` exits with an error
+    and writes nothing; it never computes on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    args = ["run", "--pics", str(pics), "--out", str(out), "--method", "asw",
+            "--d_max", "15", "--radius", "3", "--r_iters", "1", "--k_iters",
+            "1"]
+    with pytest.raises(SystemExit, match="--device cpu"):
+        main(args)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(args + ["--device", "cuda:0"])
+    assert not out.exists()
+    assert main(args + ["--device", "cpu"]) == 0
+    assert (out / "synthpair" / "asw_disparity.png").exists()
+
+
+def test_run_pairs_resolve_under_the_reference_root(tmp_path, pics,
+                                                   monkeypatch):
+    """--pairs reads the registered pairs under STEREO_REFERENCE_ROOT;
+    without it `run` exits with an error naming the variable."""
+    out = tmp_path / "out"
+    args = ["run", "--pairs", "tsukuba", "--out", str(out), "--method",
+            "asw"] + SMALL
+    monkeypatch.delenv("STEREO_REFERENCE_ROOT", raising=False)
+    with pytest.raises(SystemExit, match="STEREO_REFERENCE_ROOT"):
+        main(args)
+    with pytest.raises(SystemExit, match="unknown pairs"):
+        main(args[:2] + ["nowhere"] + args[3:])
+    root = tmp_path / "reference"
+    (root / "tsukuba").mkdir(parents=True)
+    for src, dst in (("l.png", "im1.png"), ("r.png", "im5.png")):
+        shutil.copy(tmp_path / "synthpair" / src, root / "tsukuba" / dst)
+    monkeypatch.setenv("STEREO_REFERENCE_ROOT", str(root))
+    assert main(args) == 0
+    assert (out / "tsukuba" / "asw_disparity.png").exists()
 
 
 def _run_smoke(cwd):

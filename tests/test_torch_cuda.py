@@ -15,10 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_matchin_tpu.config import TINY_CONFIG
-from stereo_matchin_tpu.eval import synthetic_scene
 from stereo_matchin_tpu_torch import kernels
 from stereo_matchin_tpu_torch import ops as tops
+from stereo_matchin_tpu_torch.config import TINY_CONFIG
+from stereo_matchin_tpu_torch.eval import synthetic_scene
 from stereo_matchin_tpu_torch.kernels.asw_aggregation import (asw_den, asw_pass,
                                                               asw_pass_win)
 from stereo_matchin_tpu_torch.kernels.cross_oii import (cross_arms, oii_pass,
@@ -59,6 +59,37 @@ def test_aggregation_kernels_bit_equal_to_plain(H, W, R, D, d0):
         assert kernels.LAUNCHES[key] == before[key] + 1
         assert max_ulp(den, tops.asw_den_plain(wl, wr, EPS, d0, D)) == 0
         assert max_ulp(out, tops.asw_pass_plain(cost, wl, wr, den, EPS, axis,
+                                                d0)) == 0
+
+
+# The tile plans' edge shapes (kernels/asw_aggregation.py aggregation_tiles),
+# (T, H, W, D, d0): W off the tile width and D off the group, W under one
+# tile, d0 >= W (every read clamps to column 0), the compiled-in T = 33 with
+# a short group, a 150-wide frame at T = 33 past its last tile, and T = 61
+# (radius 30), whose vertical tiles have their rows halved.
+EDGES = [(3, 13, 150, 11, 0), (5, 9, 20, 7, 3), (5, 17, 40, 9, 45),
+         (33, 20, 70, 13, 2), (33, 29, 150, 21, 160), (61, 26, 70, 9, 4)]
+
+
+@pytest.mark.parametrize("T,H,W,D,d0", EDGES)
+def test_aggregation_kernels_bit_equal_at_tile_edges(T, H, W, D, d0):
+    dev = cuda_device()
+    rng = np.random.default_rng(T * W + D)
+
+    def card(*shape, hi=1.0):
+        return torch.from_numpy(rng.uniform(0.01, hi, shape).astype(
+            np.float32)).to(dev)
+
+    wl, wr = card(T, H, W), card(T, H, W)
+    cost, win = card(D, H, W, hi=765.0), card(D, H + T - 1, W, hi=765.0)
+    den = _launched("asw_den", asw_den, wl, wr, EPS, d0, D)
+    assert max_ulp(den, tops.asw_den_plain(wl, wr, EPS, d0, D)) == 0
+    for axis, key in ((1, "asw_pass_v"), (2, "asw_pass_h")):
+        got = _launched(key, asw_pass, cost, wl, wr, den, EPS, axis, d0)
+        assert max_ulp(got, tops.asw_pass_plain(cost, wl, wr, den, EPS, axis,
+                                                d0)) == 0
+    got = _launched("asw_pass_win", asw_pass_win, win, wl, wr, den, EPS, d0)
+    assert max_ulp(got, tops.asw_pass_win_plain(win, wl, wr, den, EPS,
                                                 d0)) == 0
 
 

@@ -130,14 +130,9 @@ def test_shift_axis_matches_jax(shift, axis):
 # --- structure: no jax, no division by d_max --------------------------------
 
 _DIV_RE = re.compile(r"/\s*\(?\s*(cfg\s*\.\s*)?d_max\b")
-# The JAX package's modules the port may import: they contain no JAX.
-_JAX_FREE = ("stereo_matchin_tpu.config", "stereo_matchin_tpu.io",
-             "stereo_matchin_tpu.eval")
-
-
-def _jax_free(name: str) -> bool:
-    return name == "stereo_matchin_tpu" or any(
-        name == m or name.startswith(m + ".") for m in _JAX_FREE)
+# Roots the port may not import: jax, and the JAX package itself (the port
+# keeps its own copies of its config, io and eval modules).
+_FORBIDDEN = ("jax", "jaxlib", "stereo_matchin_tpu")
 
 
 def _port_sources():
@@ -145,8 +140,8 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_and_divides_by_no_d_max():
-    """No `import jax` / `from jax`, no import of the JAX package beyond its
-    JAX-free modules, and (comments and strings stripped) no `/ d_max`."""
+    """No `import jax` / `from jax`, no import of the JAX package at all,
+    and (comments and strings stripped) no `/ d_max`."""
     offenders = []
     for path in _port_sources():
         src = path.read_text()
@@ -158,9 +153,7 @@ def test_port_imports_no_jax_and_divides_by_no_d_max():
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or ""]
             for name in names:
-                root = name.split(".")[0]
-                if root in ("jax", "jaxlib") or (
-                        root == "stereo_matchin_tpu" and not _jax_free(name)):
+                if name.split(".")[0] in _FORBIDDEN:
                     offenders.append(f"{rel}:{node.lineno}: imports {name}")
         lines = {}
         for tok in tokenize.generate_tokens(io.StringIO(src).readline):
@@ -182,11 +175,13 @@ def test_importing_the_port_loads_no_jax():
             "stereo_matchin_tpu_torch.kernels.asw_aggregation",
             "stereo_matchin_tpu_torch.kernels.wta_gather",
             "stereo_matchin_tpu_torch.kernels.cross_oii",
-            "stereo_matchin_tpu_torch.kernels.sad_volume", "chip_smoke"]
+            "stereo_matchin_tpu_torch.kernels.sad_volume",
+            "stereo_matchin_tpu_torch.io", "stereo_matchin_tpu_torch.eval",
+            "stereo_matchin_tpu_torch.models.tiled", "chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib'))\n"
+            "('jax', 'jaxlib', 'stereo_matchin_tpu'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

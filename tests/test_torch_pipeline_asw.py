@@ -28,19 +28,20 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_matchin_tpu import REFERENCE_CONFIG, TINY_CONFIG
 from stereo_matchin_tpu import ops as jops
 from stereo_matchin_tpu.eval import synthetic_scene
 from stereo_matchin_tpu.models import asw as jasw
 from stereo_matchin_tpu_torch import ops as tops
+from stereo_matchin_tpu_torch import TINY_CONFIG
 from stereo_matchin_tpu_torch.convert import weights_from_jax
 from stereo_matchin_tpu_torch.models import asw as tasw
 
-from .torch_support import n, t
+from .torch_support import TINY, config_pair, n, t
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
 MAPS = ("disparity", "filled", "wta_left", "wta_right")
 VOLUME_TOL = dict(rtol=1e-4, atol=1e-3)
+JAX_REFERENCE, REFERENCE = config_pair()       # REFERENCE_CONFIG
 
 
 def _load_generator():
@@ -106,7 +107,7 @@ def jax_reference(fixture):
     shared by the module) and its weight strips."""
     left, right = gen.from_codes(fixture["left"]), gen.from_codes(fixture["right"])
     return gen.run_jax(fixture["left"], fixture["right"]), jax_strips(
-        left, right, REFERENCE_CONFIG)
+        left, right, JAX_REFERENCE)
 
 
 def test_fixture_regenerates_bit_equal(fixture, jax_reference):
@@ -124,7 +125,7 @@ def test_reference_config_bit_equal_on_jax_weights(fixture, jax_reference):
     left = t(gen.from_codes(fixture["left"]))
     right = t(gen.from_codes(fixture["right"]))
     got = tasw.asw_pipeline_from_weights(left, right, weights_from_jax(strips),
-                                         REFERENCE_CONFIG)
+                                         REFERENCE)
     assert_maps_equal(got, fixture)
     assert got.disparity.shape == (288, 384)
     assert got.aggregated_cost.shape == (61, 288, 384)
@@ -137,26 +138,26 @@ def test_reference_config_agreement_on_own_weights(fixture):
     in chip_smoke.py) is 99.5% equal disparity codes."""
     left = t(gen.from_codes(fixture["left"]))
     right = t(gen.from_codes(fixture["right"]))
-    got = tasw.asw_pipeline(left, right, REFERENCE_CONFIG)
+    got = tasw.asw_pipeline(left, right, REFERENCE)
     agree = {f: float((codes(getattr(got, f)) == fixture[f]).mean())
              for f in MAPS}
     print(f"own-weight agreement with JAX at REFERENCE_CONFIG: {agree}")
     assert agree["disparity"] >= 0.995, agree
 
 
-@pytest.mark.parametrize("cfg", [
-    TINY_CONFIG,
-    TINY_CONFIG.replace(wta_ref_conf_bug=False),
-    TINY_CONFIG.replace(quantize_maps=False),
-    TINY_CONFIG.replace(k_iters=0),
+@pytest.mark.parametrize("kw", [
+    {}, dict(wta_ref_conf_bug=False), dict(quantize_maps=False),
+    dict(k_iters=0),
 ], ids=["tiny", "conf_bug_fixed", "unquantized", "no_refinement"])
-def test_tiny_config_bit_equal_on_jax_weights(cfg):
+def test_tiny_config_bit_equal_on_jax_weights(kw):
+    jcfg, cfg = config_pair(**{**TINY, **kw})
     left, right, _, _ = synthetic_scene(np.random.default_rng(5), 48, 64,
                                         cfg.d_max)
     left, right = left.astype(np.float32), right.astype(np.float32)
-    want = jasw.asw_pipeline(jnp.asarray(left), jnp.asarray(right), cfg)
+    want = jasw.asw_pipeline(jnp.asarray(left), jnp.asarray(right), jcfg)
     got = tasw.asw_pipeline_from_weights(
-        t(left), t(right), weights_from_jax(jax_strips(left, right, cfg)), cfg)
+        t(left), t(right), weights_from_jax(jax_strips(left, right, jcfg)),
+        cfg)
     for f in MAPS + ("consistency_pre", "consistency_post"):
         g, w = n(getattr(got, f)), np.asarray(getattr(want, f))
         if not cfg.quantize_maps:

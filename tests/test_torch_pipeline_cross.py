@@ -20,12 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_matchin_tpu import REFERENCE_CONFIG, TINY_CONFIG
 from stereo_matchin_tpu.eval import synthetic_scene
 from stereo_matchin_tpu.models import cross_based as jcross
+from stereo_matchin_tpu_torch import REFERENCE_CONFIG, TINY_CONFIG
 from stereo_matchin_tpu_torch.models import cross_based as tcross
 
-from .torch_support import n, t
+from .torch_support import TINY, config_pair, n, t
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
 TAPS = dict(oii_impl="taps")
@@ -76,19 +76,18 @@ def test_reference_config_bit_equal_to_jax(pair, jax_reference):
                                       getattr(jax_reference, f), err_msg=f)
 
 
-@pytest.mark.parametrize("cfg", [
-    TINY_CONFIG.replace(**TAPS),
-    TINY_CONFIG.replace(median_dispatch_quirk=True, **TAPS),
-    TINY_CONFIG.replace(legacy_cross_arm_quirk=False, **TAPS),
-    TINY_CONFIG.replace(quantize_maps=False, **TAPS),
+@pytest.mark.parametrize("kw", [
+    {}, dict(median_dispatch_quirk=True), dict(legacy_cross_arm_quirk=False),
+    dict(quantize_maps=False),
 ], ids=["tiny", "median_quirk", "arm_quirk_off", "unquantized"])
-def test_tiny_config_bit_equal_to_jax(cfg):
+def test_tiny_config_bit_equal_to_jax(kw):
     """40x70: neither side divides by 3, so the median quirk zeroes a row
     and a column."""
+    jcfg, cfg = config_pair(**TINY, **kw, **TAPS)
     left, right, _, _ = synthetic_scene(np.random.default_rng(5), 40, 70,
                                         cfg.d_max)
     left, right = left.astype(np.float32), right.astype(np.float32)
-    want = jcross.cross_pipeline(jnp.asarray(left), jnp.asarray(right), cfg)
+    want = jcross.cross_pipeline(jnp.asarray(left), jnp.asarray(right), jcfg)
     got = tcross.cross_pipeline(t(left), t(right), cfg)
     for f in gen.FIELDS:
         g, w = n(getattr(got, f)), np.asarray(getattr(want, f))

@@ -1,7 +1,8 @@
 """Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py).
 
 Inputs are made with numpy and handed to both the JAX package and the
-port as copies, so neither side sees the other's arrays.
+port as copies, so neither side sees the other's arrays; configurations
+are built for each side from the same keywords (`config_pair`).
 """
 
 from __future__ import annotations
@@ -9,6 +10,18 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+
+# TINY_CONFIG's keywords (BASELINE.json config[0]), in both packages.
+TINY = dict(d_max=15, radius=4, arm_len=6, r_iters=2, k_iters=2)
+
+
+def config_pair(**kw):
+    """(JAX StereoConfig, port StereoConfig) from one set of keywords: the
+    JAX one for the JAX package, the port's own for the port."""
+    from stereo_matchin_tpu.config import StereoConfig as JaxConfig
+    from stereo_matchin_tpu_torch.config import StereoConfig
+
+    return JaxConfig(**kw), StereoConfig(**kw)
 
 
 def t(a) -> torch.Tensor:
