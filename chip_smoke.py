@@ -21,7 +21,9 @@ kernel against its plain version at BASELINE config 3's shapes (2880x1988,
 halo-banded, bit-equal, with times and peak device memory held against
 the band plan, and `run --bands 3`.  Before the last line it prints one
 JSON object with each kernel's launches on its path, largest error against
-its plain version, time, plain time and least time (`bound_ms`, from the
+its plain version, time (`ms`: eager calls, by CUDA events), device time
+(`device_ms`: the same calls replayed from a CUDA graph, without the host's
+dispatch), plain time (eager calls) and least time (`bound_ms`, from the
 bytes and operations of the timed call at the H100's HBM and float32
 peaks).  Any failed check raises; the last line of a passing run is
 
@@ -34,6 +36,7 @@ result.
 from __future__ import annotations
 
 import importlib.util
+import itertools
 import json
 import pathlib
 import statistics
@@ -99,6 +102,20 @@ CONFIG3_BANDS = 5
 AGGREGATION_EDGES = [(3, 13, 150, 11, 0), (5, 9, 20, 7, 3), (5, 17, 40, 9, 45),
                      (33, 20, 70, 13, 2), (33, 29, 150, 21, 160),
                      (61, 26, 70, 9, 4)]
+# Edge shapes of the WTA kernels K3/K4, (D, H, W, d1 of K4, offset in
+# floats of the volume's first element): one plane; three planes; H*W odd
+# and a volume 4 bytes off a 16-byte boundary; W under a block of K4 and W
+# off it; d1 = 0 and d1 = D - 1 (every pixel of a narrow frame in the left
+# band x < d1); uniform random d1, also at config 3's depth (dense warps:
+# K4's first pass walks them to the end); short d1 with a few outliers per
+# warp at config 3's depth (K4's second pass walks the outliers from its
+# queue).  The volumes hold small integers (exact ties) and a block of
+# planes at or above the big cap.
+WTA_EDGES = [(1, 48, 64, "argmin", 0), (3, 40, 64, "argmin", 0),
+             (61, 37, 53, "random", 0), (61, 32, 96, "argmin", 1),
+             (17, 30, 20, "last", 0), (33, 24, 300, "random", 0),
+             (61, 32, 200, "zero", 0), (61, 32, 200, "last", 0),
+             (280, 12, 700, "random", 0), (280, 8, 700, "outliers", 0)]
 # NVIDIA H100 SXM peaks (NVIDIA's datasheet): HBM bytes per second and
 # float32 operations per second outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -132,17 +149,32 @@ def max_ulp(a, b) -> int:
     return int((key(a) - key(b)).abs().max())
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` calls, by CUDA events, warm."""
+def cuda_ms(fn, reps: int, graph: bool = False) -> float:
+    """Mean device time of fn() over `reps` calls, by CUDA events, warm.
+    graph: the calls are captured once into a CUDA graph and the graph is
+    replayed, so the time is the device's alone, without the host's
+    dispatch between launches (which a short kernel's eager calls wait
+    on)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
+    else:
+        def run():
+            for _ in range(reps):
+                fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -267,7 +299,66 @@ def check_kernels(pairs, cfg, stats):
             got = kw.wta_diag(cost, d1, *pen, big=cfg.big)
             want = _diag_two_min_plain(cost, d1, *pen, big=cfg.big)
             compare(f"wta_diag {tag}", got, want, stats["wta_diag"])
+    for D, H, W, kind, offset in WTA_EDGES:
+        cost, pen, d1_of = wta_edge_inputs(rng, D, H, W, kind, offset)
+        for p in ((None, None), pen):
+            tag = (f"edge D={D} {H}x{W} d1={kind} offset={offset} "
+                   f"penalty={'yes' if p[0] is not None else 'no'}")
+            want = _two_min_plain(cost, *p, big=cfg.big)
+            compare(f"two_min {tag}", kw.two_min(cost, *p, big=cfg.big), want,
+                    stats["two_min"])
+            d1 = d1_of(want[2])
+            queued = k4_queued(d1, D)
+            if kind == "outliers" and not queued:
+                raise AssertionError(f"{tag}: K4's second pass has no work")
+            compare(f"wta_diag {tag} ({queued} pixels queued)",
+                    kw.wta_diag(cost, d1, *p, big=cfg.big),
+                    _diag_two_min_plain(cost, d1, *p, big=cfg.big),
+                    stats["wta_diag"])
     torch.cuda.synchronize()
+
+
+def wta_edge_inputs(rng, D, H, W, kind, offset):
+    """One WTA_EDGES case on the card: an integer volume (exact ties) with
+    planes at the big cap over a corner, laid `offset` floats into its
+    storage; a penalty (sc, ct); and K4's d1 from K3's ("argmin"), 0,
+    D - 1, uniform in [0, D - 1], or ("outliers") at most the planes of
+    K4's first pass with about 3 in [D // 3, D - 1] per 32 pixels."""
+    import torch
+
+    from stereo_matchin_tpu_torch.kernels import wta_gather as kw
+
+    flat = rng.integers(0, 30, offset + D * H * W).astype(np.float32)
+    cost = torch.from_numpy(flat).cuda()[offset:].view(D, H, W)
+    cost[:, :3, :5] = 2e5
+    pen = tuple(torch.from_numpy(a.astype(np.float32)).cuda() for a in
+                (rng.uniform(0, 2, (H, W)), rng.integers(0, D, (H, W))))
+    rand = rng.integers(0, D, H * W)
+    if kind == "outliers":
+        rand = rng.integers(0, min(D, kw.diag_head(D) + 1), H * W)
+        out = rng.random(H * W) < 3 / 32
+        rand[out] = rng.integers(D // 3, D, int(out.sum()))
+    rand = torch.from_numpy(rand.reshape(H, W).astype(np.int32)).cuda()
+    return cost, pen, {
+        "argmin": lambda d1: d1, "zero": torch.zeros_like,
+        "last": lambda d1: torch.full_like(d1, D - 1),
+        "random": lambda d1: rand, "outliers": lambda d1: rand}[kind]
+
+
+def k4_queued(d1, D):
+    """Pixels whose diagonals K4's first pass leaves to its second: longer
+    than kernels/wta_gather.py diag_head(D) planes, in a warp (32
+    consecutive pixels) with at most K4_SPARSE such lanes."""
+    import torch
+
+    from stereo_matchin_tpu_torch.kernels import wta_gather as kw
+
+    xs = torch.arange(d1.shape[1], device=d1.device)[None, :]
+    longer = (d1.clamp(max=D - 1) - (d1 - xs).clamp(min=1) + 1
+              > kw.diag_head(D)).flatten()
+    longer = torch.cat([longer, longer.new_zeros(-longer.numel() % 32)])
+    longer = longer.view(-1, 32)
+    return int((longer & (longer.sum(1, keepdim=True) <= kw.K4_SPARSE)).sum())
 
 
 def check_aggregation_edges(stats):
@@ -315,6 +406,46 @@ def aggregation_work(kind, T, H, W, D, rows=None):
             (3 * T + 1) * D * H * W)
 
 
+def wta_work(cost, d1, pen):
+    """{"two_min": (bytes, ops), "wta_diag": (bytes, ops)} on these inputs:
+    K3 reads every plane, K4 the diagonal b in [d1 - min(d1, x), d1] of
+    each pixel; both read d1 or the penalty maps where given and write
+    their outputs; ops: |ct - d|, * sc, + cost and three compares per
+    element read."""
+    D, H, W = cost.shape
+    diag = diag_elements(d1)
+    maps = nbytes(*pen) if pen[0] is not None else 0
+    return {"two_min": (nbytes(cost) + maps + 3 * H * W * 4, 7 * D * H * W),
+            "wta_diag": (diag * 4 + nbytes(d1) + maps + 4 * H * W * 4,
+                         7 * diag)}
+
+
+def diag_elements(d1):
+    """Floats K4 reads for this d1: its diagonal and the base plane,
+    min(d1, x) + 1 per pixel."""
+    import torch
+
+    xs = torch.arange(d1.shape[1], device=d1.device)[None, :]
+    return int((torch.minimum(d1, xs) + 1).sum())
+
+
+def diag_sectors(d1, D):
+    """The 32-byte sectors (8 floats of a volume row) that K4's diagonals
+    touch: b in [max(1, d1 - x), min(d1, D - 1)] at column x - d1 + b.  The
+    card moves whole sectors, so scattered diagonals cost more than the 4
+    bytes per element that `wta_work` counts."""
+    import torch
+
+    H, W = d1.shape
+    ys, xs = torch.meshgrid(torch.arange(H, device=d1.device),
+                            torch.arange(W, device=d1.device), indexing="ij")
+    total = 0
+    for b in range(1, D):
+        m = (d1 >= b) & (xs >= d1 - b)
+        total += torch.unique(ys[m] * W + (xs - d1 + b)[m] // 8 * 8).numel()
+    return total
+
+
 def time_kernels(left, right, cfg, stats, smi):
     """Kernel and plain-version device times at the main path's shapes."""
     import torch
@@ -333,6 +464,10 @@ def time_kernels(left, right, cfg, stats, smi):
     d1 = _two_min_plain(cost)[2]
     sc = cost[0] * 0.01
     ct = cost[1] * 0.05
+    # K3/K4 read their volume once per call: timed on four copies in turn
+    # (108 MB, over the H100's 50 MB L2), each call reads it from HBM, as
+    # its bound counts.
+    vols = itertools.cycle([cost] + [cost.clone() for _ in range(3)])
     cases = {
         "asw_den": (lambda: ka.asw_den(wl, wr, eps, 0, D),
                     lambda: ops.asw_den_plain(wl, wr, eps, 0, D)),
@@ -340,9 +475,9 @@ def time_kernels(left, right, cfg, stats, smi):
                        lambda: ops.asw_pass_plain(cost, wl, wr, den_v, eps, 1)),
         "asw_pass_h": (lambda: ka.asw_pass(cost, hl, hr, den_h, eps, 2),
                        lambda: ops.asw_pass_plain(cost, hl, hr, den_h, eps, 2)),
-        "two_min": (lambda: kw.two_min(cost, sc, ct, cfg.big),
+        "two_min": (lambda: kw.two_min(next(vols), sc, ct, cfg.big),
                     lambda: _two_min_plain(cost, sc, ct, cfg.big)),
-        "wta_diag": (lambda: kw.wta_diag(cost, d1, sc, ct, cfg.big),
+        "wta_diag": (lambda: kw.wta_diag(next(vols), d1, sc, ct, cfg.big),
                      lambda: _diag_two_min_plain(cost, d1, sc, ct, cfg.big)),
     }
     D_, H, W = cost.shape
@@ -350,26 +485,13 @@ def time_kernels(left, right, cfg, stats, smi):
     for name in ("asw_den", "asw_pass_v", "asw_pass_h"):
         record_work(stats, name, *aggregation_work(
             "den" if name == "asw_den" else "pass", T, H, W, D_))
-    # K3 reads every plane, K4 the diagonal b in [d1 - min(d1, x), d1] of
-    # each pixel; both read the penalty maps and write their outputs; ops:
-    # |ct - d|, * sc, + cost and three compares per element read.
-    xs = torch.arange(W, device=cost.device)[None, :]
-    diag = int((torch.minimum(d1, xs) + 1).sum())
-    maps = nbytes(sc, ct)
-    record_work(stats, "two_min", nbytes(cost) + maps + 3 * H * W * 4,
-                7 * D_ * H * W)
-    record_work(stats, "wta_diag", diag * 4 + nbytes(d1) + maps + 4 * H * W * 4,
-                7 * diag)
+    work = wta_work(cost, d1, (sc, ct))
+    for name in ("two_min", "wta_diag"):
+        record_work(stats, name, *work[name])
     for name, (kern, plain) in cases.items():
-        # plain, kernel, kernel, plain: the first plain warms the allocator.
-        p1 = cuda_ms(plain, 5)
-        k1 = cuda_ms(kern, 20)
-        k2 = cuda_ms(kern, 20)
-        p2 = cuda_ms(plain, 5)
-        stats[name]["ms"] = min(k1, k2)
-        stats[name]["plain_ms"] = min(p1, p2)
-        print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-              f"{p2:.4f} ms  (D={D}, {left.shape[0]}x{left.shape[1]}, "
+        times, line = turns(kern, plain, 20, 5)
+        stats[name].update(times)
+        print(f"  {name}: {line}  (D={D}, {left.shape[0]}x{left.shape[1]}, "
               f"T={2 * R + 1}; {smi})")
 
 
@@ -479,15 +601,10 @@ def time_cross_kernels(left, right, cfg, stats, smi):
     record_work(stats, "vote_v", nbytes(rc, al) + H * W * 4,
                 D * (int(win_v.sum()) + H * W))
     for name, (kern, plain) in cases.items():
-        p1 = cuda_ms(plain, 5)
-        k1 = cuda_ms(kern, 20)
-        k2 = cuda_ms(kern, 20)
-        p2 = cuda_ms(plain, 5)
-        stats[name]["ms"] = min(k1, k2)
-        stats[name]["plain_ms"] = min(p1, p2)
-        print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-              f"{p2:.4f} ms  (D={D}, {left.shape[0]}x{left.shape[1]}, L={L}; "
-              f"{smi})")
+        times, line = turns(kern, plain, 20, 5)
+        stats[name].update(times)
+        print(f"  {name}: {line}  (D={D}, {left.shape[0]}x{left.shape[1]}, "
+              f"L={L}; {smi})")
 
 
 def check_band_kernels(pairs, cfg, stats):
@@ -557,7 +674,9 @@ def band_kernels_config3(left, right, cfg, stats, smi):
     plain versions (0 ulp) and timed: K1 and K2 on the second of 4
     disparity chunks of the whole frame, the windowed K2 on an interior
     wavefront band's level window, and K3/K4 on all D planes over that
-    band's postaggregate rows [s - keep, e + keep)."""
+    band's postaggregate rows [s - keep, e + keep): K3 with and without
+    the penalty, K4 on the shifted pair's d1 and on a uniform random one,
+    each beside its bound from this run's bytes (`wta_work`)."""
     import torch
 
     from stereo_matchin_tpu_torch import ops
@@ -593,8 +712,13 @@ def band_kernels_config3(left, right, cfg, stats, smi):
         record_work(stats, name, *aggregation_work("pass", T, H, W, chunk))
     record_work(stats, "asw_pass_win", *aggregation_work(
         "pass", T, b - a, W, chunk, rows=b - a + 2 * R))
-    # (name, where, kernel, plain version, timed): K3/K4 keep their times
-    # at 288x384 (phase 3).
+    # K4 also on a seeded uniform d1 in [0, D - 1]: the longest diagonals,
+    # scattered, in every warp, its worst case.
+    noise = torch.from_numpy(np.random.default_rng(23).integers(
+        0, D, tuple(d1.shape)).astype(np.int32)).cuda()
+    # (name, where, kernel, plain version, timed): K1/K2 and the windowed
+    # K2 record their times here; K3/K4 keep theirs at 288x384 (phase 3) in
+    # the kernels line and print these beside their bounds.
     cases = [
         ("asw_den_chunk", chunk_at, lambda: ka.asw_den(wl, wr, eps, d0, chunk),
          lambda: ops.asw_den_plain(wl, wr, eps, d0, chunk), True),
@@ -612,27 +736,67 @@ def band_kernels_config3(left, right, cfg, stats, smi):
          lambda: _two_min_plain(tail, big=cfg.big), False),
         ("two_min", tail_at, lambda: kw.two_min(tail, sc, ct, cfg.big),
          lambda: _two_min_plain(tail, sc, ct, cfg.big), False),
-        ("wta_diag", tail_at, lambda: kw.wta_diag(tail, d1, sc, ct, cfg.big),
+        ("wta_diag", tail_at + ", the shifted pair's d1",
+         lambda: kw.wta_diag(tail, d1, sc, ct, cfg.big),
          lambda: _diag_two_min_plain(tail, d1, sc, ct, cfg.big), False),
+        ("wta_diag", tail_at + ", uniform random d1",
+         lambda: kw.wta_diag(tail, noise, sc, ct, cfg.big),
+         lambda: _diag_two_min_plain(tail, noise, sc, ct, cfg.big), False),
     ]
+    works = [wta_work(tail, d1, (None, None))["two_min"],
+             wta_work(tail, d1, (sc, ct))["two_min"],
+             wta_work(tail, d1, (sc, ct))["wta_diag"],
+             wta_work(tail, noise, (sc, ct))["wta_diag"]]
+    wta = []
     for name, at, kern, plain, timed_here in cases:
         got, want = kern(), plain()
         if not isinstance(got, (tuple, list)):
             got, want = [got], [want]
         compare(f"{name} config 3 ({at})", got, want, stats[name])
         del got, want
-        if not timed_here:
+        times, line = turns(kern, plain, 5, 2)
+        print(f"  {name}: {line}  ({at} x {W}, T={2 * R + 1}; {smi})")
+        if timed_here:
+            stats[name].update(times)
             continue
-        p1 = cuda_ms(plain, 2)
-        k1 = cuda_ms(kern, 5)
-        k2 = cuda_ms(kern, 5)
-        p2 = cuda_ms(plain, 2)
-        stats[name]["ms"] = min(k1, k2)
-        stats[name]["plain_ms"] = min(p1, p2)
-        print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-              f"{p2:.4f} ms  ({at} x {W}, T={2 * R + 1}; {smi})")
-    del cost, den_v, den_h, win, strips, tail, sc, ct, d1
+        moved, ops = works[len(wta)]
+        bound_ms, bound_by = bound({"bytes": moved, "ops": ops})
+        wta.append({"name": name, "at": f"{at} x {W}", **times,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bytes": moved})
+        print(f"    bound {bound_ms:.4f} ms ({bound_by}, {moved} bytes): "
+              f"{bound_ms / times['device_ms'] * 100:.1f}% of it (device "
+              f"time)")
+        if name == "wta_diag":
+            dd = d1 if len(wta) == 3 else noise
+            n = diag_sectors(dd, D)
+            by_sector = moved - 4 * diag_elements(dd) + 32 * n
+            wta[-1].update(sectors=n, queued=k4_queued(dd, D))
+            print(f"    its diagonals touch {n} 32-byte sectors: "
+                  f"{by_sector / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s with the maps, d1 and "
+                  f"outputs; {wta[-1]['queued']} pixels queued for the "
+                  f"second pass")
+    print(json.dumps({"config3_wta": wta, "card": smi}))
+    del cost, den_v, den_h, win, strips, tail, sc, ct, d1, noise
     torch.cuda.synchronize()
+
+
+def turns(kern, plain, kreps, preps):
+    """Times in the turns plain, kernel, kernel, plain (the first plain
+    warms the allocator): ({"ms": the kernel's eager calls, host dispatch
+    included, as its callers run it; "device_ms": the same calls replayed
+    from a CUDA graph, the device's time alone; "plain_ms": the plain
+    version's eager calls}, each the better of two runs; a line with both
+    runs of each)."""
+    p1 = cuda_ms(plain, preps)
+    k1, g1 = cuda_ms(kern, kreps), cuda_ms(kern, kreps, graph=True)
+    g2, k2 = cuda_ms(kern, kreps, graph=True), cuda_ms(kern, kreps)
+    p2 = cuda_ms(plain, preps)
+    return ({"ms": min(k1, k2), "device_ms": min(g1, g2),
+             "plain_ms": min(p1, p2)},
+            f"kernel {k1:.4f} / {k2:.4f} ms (device {g1:.4f} / {g2:.4f}), "
+            f"plain {p1:.4f} / {p2:.4f} ms")
 
 
 def cross_kernels_config3(left, right, cfg, stats):
@@ -1204,7 +1368,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches[path][key],
             "max_abs_err": stats[name]["max_abs_err"],
-            "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+            "ms": stats[name]["ms"], "device_ms": stats[name]["device_ms"],
+            "plain_ms": stats[name]["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             # No single PyTorch call computes any of these functions (the
             # weights differ per tap and plane, the order of the f32 sums

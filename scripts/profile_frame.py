@@ -69,9 +69,13 @@ def main() -> int:
           f"{cfg.aggr_d_chunks}: {host_ms:.1f} ms host (profiled), "
           f"{device_ms:.1f} ms device ({device_ms / host_ms * 100:.1f}% busy) "
           f"in {launches} device launches; {smi}")
-    for e in rows[:20]:
-        print(f"  {e.device_time_total / 1e3:10.3f} ms  {e.count:6d} x  "
-              f"{e.key[:90]}")
+    # The 20 largest rows, and every other row of the port's own kernels
+    # (csrc/*.cu, all in an anonymous namespace), however small.
+    for i, e in enumerate(rows):
+        if i < 20 or e.key.startswith(("(anonymous namespace)::",
+                                       "void (anonymous namespace)::")):
+            print(f"  {e.device_time_total / 1e3:10.3f} ms  {e.count:6d} x  "
+                  f"{e.key[:90]}")
     return 0
 
 

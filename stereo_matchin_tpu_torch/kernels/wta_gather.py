@@ -7,6 +7,12 @@ diagonal straight from the (D, H, W) volume, so the TPU package's sheared
 copy (build_diag) and its pads have no counterpart.  The plain versions
 are ops/wta_fast.py `_two_min_plain` / `_diag_two_min_plain`: a CPU
 tensor takes them, a CUDA tensor launches the kernel or raises.
+
+K4 walks each pixel's diagonal in two passes: the first `diag_head(D)`
+planes of every diagonal, then the rest of the longer diagonals of warps
+that hold at most K4_SPARSE of them, from a queue, so warps stay full
+where a few pixels have outlying d1 (tests/test_torch_wta_tiles.py walks
+this in numpy as the CUDA code indexes).
 """
 
 from __future__ import annotations
@@ -20,6 +26,12 @@ from . import LAUNCHES, check_tensor, raise_on_error, require_cuda
 from ._build import library
 from ..ops.wta_fast import _diag_two_min_plain, _two_min_plain
 
+# K4: the planes of each diagonal in the first pass, and the most lanes of
+# a warp that leave the rest of theirs to the second (compiled in:
+# csrc/wta_gather.cu kSparseK4).
+K4_HEAD = 64
+K4_SPARSE = 8
+
 
 @functools.cache
 def _lib():
@@ -27,9 +39,20 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.two_min_f32.argtypes = [p, p, p, p, p, p, i, i, i, f, p]
     lib.two_min_f32.restype = i
-    lib.wta_diag_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
+    lib.wta_diag_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.wta_diag_f32.restype = i
     return lib
+
+
+def diag_head(D: int) -> int:
+    """The planes of each diagonal that K4's first pass walks: K4_HEAD, at
+    most D.  Where it is at least D - 1 the first pass walks every
+    diagonal and the second is not launched."""
+    head = min(K4_HEAD, max(D, 1))
+    if head < 1:
+        raise ValueError(f"K4 is not compiled for a first pass of {head} "
+                         f"planes (K4_HEAD {K4_HEAD})")
+    return head
 
 
 def _check_cost_and_penalty(cost, sc, ct):
@@ -88,16 +111,21 @@ def wta_diag(cost: torch.Tensor, d1: torch.Tensor,
     pen = () if sc is None else (sc, ct)
     require_cuda(cost, d1, *pen)
     D, H, W = cost.shape
+    head = diag_head(D)
+    if H * W >= 2 ** 31 - 1:
+        raise ValueError(f"K4 indexes pixels in int32: {H * W} is too many")
     c1 = torch.empty((H, W), dtype=torch.float32, device=cost.device)
     c2 = torch.empty_like(c1)
     base = torch.empty_like(c1)
     b = torch.empty((H, W), dtype=torch.int32, device=cost.device)
+    queue = (torch.empty(H * W + 1, dtype=torch.int32, device=cost.device)
+             if head < D - 1 else None)
     with torch.cuda.device(cost.device):
         stream = torch.cuda.current_stream(cost.device).cuda_stream
         rc = _lib().wta_diag_f32(cost.data_ptr(), d1.data_ptr(), _ptr(sc),
                                  _ptr(ct), c1.data_ptr(), c2.data_ptr(),
-                                 b.data_ptr(), base.data_ptr(), D, H, W, big,
-                                 stream)
+                                 b.data_ptr(), base.data_ptr(), _ptr(queue),
+                                 D, H, W, big, head, stream)
     raise_on_error(rc, "wta_diag")
     LAUNCHES["wta_diag"] += 1
     return c1, c2, b, base

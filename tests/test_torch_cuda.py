@@ -24,12 +24,14 @@ from stereo_matchin_tpu_torch.kernels.asw_aggregation import (asw_den, asw_pass,
 from stereo_matchin_tpu_torch.kernels.cross_oii import (cross_arms, oii_pass,
                                                         vote_h, vote_v)
 from stereo_matchin_tpu_torch.kernels.sad_volume import sad_volume
+from stereo_matchin_tpu_torch.kernels import wta_gather as kw
 from stereo_matchin_tpu_torch.kernels.wta_gather import two_min, wta_diag
 from stereo_matchin_tpu_torch.models import asw, cross_based, tiled
 from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
                                                    _two_min_plain)
 
-from .torch_support import cuda_device, max_ulp, n, unorm8_pair
+from .torch_support import (cuda_device, k4_queued, max_ulp, n, outlier_d1,
+                            unorm8_pair)
 
 pytestmark = pytest.mark.cuda
 EPS, BIG = 1e-5, 1e5
@@ -93,14 +95,45 @@ def test_aggregation_kernels_bit_equal_at_tile_edges(T, H, W, D, d0):
                                                 d0)) == 0
 
 
-@pytest.mark.parametrize("D,H,W", [(8, 16, 24), (11, 24, 20), (61, 288, 384)])
+# (D, H, W, d1 of K4, offset in floats of the volume's first element): the
+# first three as before; then edge shapes, as chip_smoke.py's WTA_EDGES:
+# one plane; three planes; H*W odd; a volume 4 bytes off a 16-byte
+# boundary; W under a block of K4 and W off it; d1 = 0 and d1 = D - 1 (a
+# narrow frame all in the left band); uniform random d1, also at config 3's
+# depth (dense warps: the first pass walks them to the end); short d1 with
+# a few outliers per warp at config 3's depth (K4's second pass walks the
+# outliers from its queue).
+WTA_SHAPES = [(8, 16, 24, "argmin", 0), (11, 24, 20, "argmin", 0),
+              (61, 288, 384, "argmin", 0),
+              (1, 48, 64, "argmin", 0), (3, 40, 64, "argmin", 0),
+              (61, 37, 53, "random", 0), (61, 32, 96, "argmin", 1),
+              (17, 30, 20, "last", 0), (33, 24, 300, "random", 0),
+              (61, 32, 200, "zero", 0), (61, 32, 200, "last", 0),
+              (280, 12, 700, "random", 0), (280, 8, 700, "outliers", 0)]
+
+
+@pytest.mark.parametrize("D,H,W,kind,offset", WTA_SHAPES)
 @pytest.mark.parametrize("with_penalty", [False, True])
-def test_wta_kernels_bit_equal_to_plain(D, H, W, with_penalty):
+def test_wta_kernels_bit_equal_to_plain(D, H, W, kind, offset, with_penalty):
+    _wta_bit_equal(D, H, W, kind, offset, with_penalty)
+
+
+# K4's first pass cut to 1 and to 5 planes: on the outlier map the longer
+# diagonals continue in the second pass from the queue; on argmin and
+# uniform d1 most warps are dense and walk theirs to the end at once.
+@pytest.mark.parametrize("head", [1, 5])
+@pytest.mark.parametrize("kind", ["argmin", "random", "outliers"])
+def test_wta_diag_second_pass_bit_equal_to_plain(kind, head, monkeypatch):
+    monkeypatch.setattr(kw, "K4_HEAD", head)
+    _wta_bit_equal(61, 40, 300, kind, 0, True)
+
+
+def _wta_bit_equal(D, H, W, kind, offset, with_penalty):
     dev = cuda_device()
     rng = np.random.default_rng(D + H + W)
-    cost = rng.integers(0, 30, (D, H, W)).astype(np.float32)   # exact ties
+    flat = rng.integers(0, 30, offset + D * H * W).astype(np.float32)  # ties
+    cost = torch.from_numpy(flat).to(dev)[offset:].view(D, H, W)
     cost[:, :2, :3] = 2e5
-    cost = torch.from_numpy(cost).to(dev)
     pen = (None, None)
     if with_penalty:
         pen = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in
@@ -110,8 +143,16 @@ def test_wta_kernels_bit_equal_to_plain(D, H, W, with_penalty):
     want = _two_min_plain(cost, *pen, big=BIG)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(n(g), n(w))
-    got = wta_diag(cost, want[2], *pen, big=BIG)
-    for g, w in zip(got, _diag_two_min_plain(cost, want[2], *pen, big=BIG)):
+    d1 = {"argmin": want[2], "zero": torch.zeros_like(want[2]),
+          "last": torch.full_like(want[2], D - 1),
+          "random": torch.from_numpy(rng.integers(0, D, (H, W)).astype(
+              np.int32)).to(dev),
+          "outliers": torch.from_numpy(outlier_d1(
+              rng, D, H, W, kw.diag_head(D))).to(dev)}[kind]
+    if kind == "outliers":
+        assert len(k4_queued(d1, D, kw.diag_head(D), kw.K4_SPARSE)) > 0
+    got = wta_diag(cost, d1, *pen, big=BIG)
+    for g, w in zip(got, _diag_two_min_plain(cost, d1, *pen, big=BIG)):
         np.testing.assert_array_equal(n(g), n(w))
     assert kernels.LAUNCHES["two_min"] == before["two_min"] + 1
     assert kernels.LAUNCHES["wta_diag"] == before["wta_diag"] + 1

@@ -54,6 +54,29 @@ def cuda_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def outlier_d1(rng, D: int, H: int, W: int, head: int) -> np.ndarray:
+    """A K4 disparity map whose diagonals mostly fit K4's first pass (d1 at
+    most `head`) with about 3 outliers in [D // 3, D - 1] per 32 pixels:
+    the map on which the second pass walks the outliers of sparse warps."""
+    d1 = rng.integers(0, min(D, head + 1), H * W)
+    out = rng.random(H * W) < 3 / 32
+    d1[out] = rng.integers(D // 3, D, int(out.sum()))
+    return d1.reshape(H, W).astype(np.int32)
+
+
+def k4_queued(d1, D: int, head: int, sparse: int) -> np.ndarray:
+    """The pixels (flat indices) whose diagonals K4's first pass leaves to
+    its second: longer than `head` planes, in a warp (32 consecutive
+    pixels) with at most `sparse` such lanes."""
+    d1 = n(d1)
+    H, W = d1.shape
+    xs = np.arange(W)[None, :]
+    longer = (np.minimum(d1, D - 1) - np.maximum(1, d1 - xs) + 1 > head)
+    longer = np.concatenate([longer.ravel(), np.zeros(-H * W % 32, bool)])
+    lanes = np.repeat(longer.reshape(-1, 32).sum(1), 32)
+    return np.flatnonzero(longer & (lanes <= sparse))
+
+
 def unorm8_pair(rng, H: int, W: int):
     """A random (H, W, 3) pair on the UNORM8 grid; the right view is the
     left one shifted by 2 columns so that matching has a true answer."""
