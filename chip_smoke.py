@@ -557,6 +557,65 @@ def check_cross_kernels(pairs, cfg, stats):
     torch.cuda.synchronize()
 
 
+def check_vote_edges(stats, kernels):
+    """K8 at the edge shapes of its plans (tests/torch_support.py
+    VOTE_EDGES, the card tests' shapes) against its plain versions, one
+    launch each asserted; vote_v also on an rc one byte off a 16-byte
+    boundary (no 16-byte copies)."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import cross_oii as kc
+    from tests.torch_support import VOTE_EDGES, vote_inputs
+
+    def launched(name, fn, *args):
+        before = kernels.LAUNCHES[name]
+        out = fn(*args)
+        if kernels.LAUNCHES[name] != before + 1:
+            raise AssertionError(f"{name}: {kernels.LAUNCHES[name] - before} "
+                                 f"launches, expected 1")
+        return out
+
+    for H, W, D, L in VOTE_EDGES.values():
+        idx, al = (torch.from_numpy(a).cuda() for a in vote_inputs(
+            np.random.default_rng(H + D), D, H, W, L))
+        tag = f"edge {H}x{W} D={D} L={L}"
+        rc = ops.vote_counts_plain(idx, al, D, L)
+        mode = ops.vote_mode_plain(rc, al, L)
+        compare(f"vote_h {tag}", [launched("vote_h", kc.vote_h, idx, al, D, L)],
+                [rc], stats["vote_h"])
+        off = torch.empty(rc.numel() + 1, dtype=torch.uint8,
+                          device=rc.device)[1:].view(rc.shape)
+        off.copy_(rc)
+        for where, r in (("", rc), (" rc off 16 bytes", off)):
+            compare(f"vote_v {tag}{where}",
+                    [launched("vote_v", kc.vote_v, r, al, L)], [mode],
+                    stats["vote_v"])
+    torch.cuda.synchronize()
+
+
+def cross_work(ml, mr, al, ar, D, L):
+    """{kernel: (bytes, operations)} of K5-K8 on one frame or band of D
+    planes: each input read once, each output written once; a pass over
+    one axis reads only that axis's two arm planes."""
+    H, W = ml.shape[:2]
+    # Window lengths of this run's arms, [minus, plus] within [-L, L]: an
+    # OII or vote pass adds at most that many values per output (the OII's
+    # combined arms are no longer than the left ones).
+    win_h = int((al[0].abs().clamp(max=L) + al[1].abs().clamp(max=L) + 1).sum())
+    win_v = int((al[2].abs().clamp(max=L) + al[3].abs().clamp(max=L) + 1).sum())
+    vol, rc, plane = 4 * D * H * W, D * H * W, 4 * H * W
+    arms = 2 * plane                      # one view's arms along one axis
+    return {
+        "cross_arms": (nbytes(ml) + nbytes(al), 8 * int((al.abs() + 1).sum())),
+        "sad_volume": (nbytes(ml, mr) + vol, 14 * D * H * W),
+        "oii_pass_h": (2 * vol + 2 * arms, D * (win_h + H * W)),
+        "oii_pass_v": (2 * vol + 2 * arms, D * (win_v + H * W)),
+        "vote_h": (plane + arms + rc, win_h),       # idx, arms -> rc
+        "vote_v": (rc + arms + plane, D * (win_v + H * W)),  # -> mode
+    }
+
+
 def time_cross_kernels(left, right, cfg, stats, smi):
     """K5-K8 and plain-version device times at the cross path's shapes."""
     from stereo_matchin_tpu_torch import ops
@@ -583,23 +642,8 @@ def time_cross_kernels(left, right, cfg, stats, smi):
         "vote_v": (lambda: kc.vote_v(rc, al, L),
                    lambda: ops.vote_mode_plain(rc, al, L)),
     }
-    # Window lengths of this run's arms, [minus, plus] within [-L, L]: an
-    # OII or vote pass adds at most that many values per output (the OII's
-    # combined arms are no longer than the left ones).
-    H, W = ml.shape[:2]
-    win_h = al[0].abs().clamp(max=L) + al[1].abs().clamp(max=L) + 1
-    win_v = al[2].abs().clamp(max=L) + al[3].abs().clamp(max=L) + 1
-    vol = nbytes(cost)
-    record_work(stats, "cross_arms", nbytes(ml) + nbytes(al),
-                8 * int((al.abs() + 1).sum()))
-    record_work(stats, "sad_volume", nbytes(ml, mr) + vol, 14 * D * H * W)
-    record_work(stats, "oii_pass_h", 2 * vol + nbytes(al, ar),
-                D * (int(win_h.sum()) + H * W))
-    record_work(stats, "oii_pass_v", 2 * vol + nbytes(al, ar),
-                D * (int(win_v.sum()) + H * W))
-    record_work(stats, "vote_h", nbytes(idx, al) + nbytes(rc), int(win_h.sum()))
-    record_work(stats, "vote_v", nbytes(rc, al) + H * W * 4,
-                D * (int(win_v.sum()) + H * W))
+    for name, moved_ops in cross_work(ml, mr, al, ar, D, L).items():
+        record_work(stats, name, *moved_ops)
     for name, (kern, plain) in cases.items():
         times, line = turns(kern, plain, 20, 5)
         stats[name].update(times)
@@ -799,11 +843,13 @@ def turns(kern, plain, kreps, preps):
             f"plain {p1:.4f} / {p2:.4f} ms")
 
 
-def cross_kernels_config3(left, right, cfg, stats):
+def cross_kernels_config3(left, right, cfg, stats, smi):
     """K5-K8 against their plain versions at config 3's shapes, all
     cfg.num_disp planes, on the image rows of the cross wavefront's last
     band: arms and the OII vertical pass anchored by row0/h_glob, rows
-    past the frame bottom edge-replicated."""
+    past the frame bottom edge-replicated.  Each is timed there in turns
+    with its plain version beside its bound; one `config3_cross` JSON
+    line."""
     import torch
 
     from stereo_matchin_tpu_torch import ops
@@ -819,30 +865,57 @@ def cross_kernels_config3(left, right, cfg, stats):
     ml, mr = (ops.median3x3(x)[rows].contiguous() for x in (left, right))
     tag = f"config 3 rows {row0}..{row1} of {H}, D={D}"
     al, ar = (ops.cross_arms(m, L, tau, q, row0, H) for m in (ml, mr))
+    work = cross_work(ml, mr, al, ar, D, L)
+    c3 = {}
+
+    # Kernel calls per timed run: 5 of the volume passes (3-6 ms each), 40
+    # of K5 and K8 (0.1-0.7 ms), so that no run lasts under a few ms.
+    def timed_turns(name, kern, plain, kreps):
+        times, line = turns(kern, plain, kreps, 1)
+        entry = dict(times, bytes=work[name][0], ops=work[name][1])
+        entry["bound_ms"], entry["bound_by"] = bound(entry)
+        c3[name] = entry
+        print(f"  {name}: {line}; bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']})  ({tag}; {smi})")
+
     for side, m, want in (("left", ml, al), ("right", mr, ar)):
         compare(f"cross_arms {tag} {side}",
                 [kc.cross_arms(m, L, tau, q, row0, H)], [want],
                 stats["cross_arms"])
+    timed_turns("cross_arms", lambda: kc.cross_arms(ml, L, tau, q, row0, H),
+                lambda: ops.cross_arms(ml, L, tau, q, row0, H), 40)
     cost = ops.sad_cost_volume(ml, mr, D, 1.0)
     compare(f"sad_volume {tag}", [sad_volume(ml, mr, D, 1.0)], [cost],
             stats["sad_volume"])
+    timed_turns("sad_volume", lambda: sad_volume(ml, mr, D, 1.0),
+                lambda: ops.sad_cost_volume(ml, mr, D, 1.0), 5)
     temp = ops.oii_pass_plain(cost, al, ar, L, 2)
     compare(f"oii_pass_h {tag}", [kc.oii_pass(cost, al, ar, L, 2)], [temp],
             stats["oii_pass_h"])
+    timed_turns("oii_pass_h", lambda: kc.oii_pass(cost, al, ar, L, 2),
+                lambda: ops.oii_pass_plain(cost, al, ar, L, 2), 5)
     del cost
     aggr = ops.oii_pass_plain(temp, al, ar, L, 1, 0, row0, H)
     compare(f"oii_pass_v {tag}", [kc.oii_pass(temp, al, ar, L, 1, 0, row0, H)],
             [aggr], stats["oii_pass_v"])
+    timed_turns("oii_pass_v", lambda: kc.oii_pass(temp, al, ar, L, 1, 0, row0, H),
+                lambda: ops.oii_pass_plain(temp, al, ar, L, 1, 0, row0, H), 5)
     del temp
     idx = ops.vote_indices(ops.disparity_to_image(ops.wta_argmin(aggr),
                                                   cfg.d_max), cfg.d_max)
     del aggr
     rc = ops.vote_counts_plain(idx, al, D, L)
     compare(f"vote_h {tag}", [kc.vote_h(idx, al, D, L)], [rc], stats["vote_h"])
+    timed_turns("vote_h", lambda: kc.vote_h(idx, al, D, L),
+                lambda: ops.vote_counts_plain(idx, al, D, L), 40)
     compare(f"vote_v {tag}", [kc.vote_v(rc, al, L)],
             [ops.vote_mode_plain(rc, al, L)], stats["vote_v"])
+    timed_turns("vote_v", lambda: kc.vote_v(rc, al, L),
+                lambda: ops.vote_mode_plain(rc, al, L), 40)
     del rc, idx, al, ar, ml, mr
     torch.cuda.synchronize()
+    print(json.dumps({"config3_cross": c3, "rows": [row0, row1], "D": D,
+                      "card": smi}))
 
 
 class BandPeaks:
@@ -1077,7 +1150,7 @@ def config3_cross(cfg, kernels, stats, smi):
     left, right = scene_pair(4, H, W, cfg.d_max)
     print(f"  synthetic scene {H}x{W} made in "
           f"{time.perf_counter() - t0:.1f} s (host; {smi})")
-    cross_kernels_config3(left, right, cfg, stats)
+    cross_kernels_config3(left, right, cfg, stats, smi)
     runs = {"whole": lambda: cross_based.cross_pipeline(left, right, cfg),
             "wavefront": lambda: tiled.cross_pipeline_tiled(
                 left, right, cfg, B, wavefront=True),
@@ -1227,6 +1300,7 @@ def main() -> int:
     cross_pairs = {"288x384 fixture": (left, right),
                    "375x450 synthetic": scene_pair(3, 375, 450, cfg.d_max)}
     check_cross_kernels(cross_pairs, cfg, stats)
+    check_vote_edges(stats, kernels)
     time_cross_kernels(left, right, cfg, stats, smi)
 
     phase("8. cross slice at REFERENCE_CONFIG: kernels against plain ops")

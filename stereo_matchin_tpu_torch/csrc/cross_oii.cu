@@ -46,13 +46,39 @@
 // absolute values, and the h pass's means of them), and x + (+0.0) == x for
 // every such x, so the sums are bit-identical.
 //
-// Bound: K7 and K8's count are memory-bound volume passes: one thread per
-// output element, x fastest, so loads and stores are coalesced and the up
-// to 2L+1 taps of neighbouring threads share cache lines (L1/L2).  K5 and
-// K8's mode run one thread per pixel; K8's mode reads D * (vp - vm + 1)
-// bytes per pixel through L1/L2.  Tiling through shared memory is later
-// work.  The anchoring (row0, h_glob) serves the band drivers: a band's
+// Bound: K7 is a memory-bound volume pass: one thread per output element,
+// x fastest, so loads and stores are coalesced and the up to 2L+1 taps of
+// neighbouring threads share cache lines (L1/L2).  K5 runs one thread per
+// pixel.  The anchoring (row0, h_glob) serves the band drivers: a band's
 // window of rows gives every kept row the values of the whole frame.
+//
+// K8 is bound by its bytes: rc (D, H, W) uint8 is written once by the count
+// and read once by the mode; the plans are kernels/cross_oii.py
+// vote_h_tiles / vote_v_tiles, which the wrappers pass to the entry points
+// below (tests/test_torch_vote_tiles.py walks both in numpy).
+//   vote_h: a block owns kVoteHTx pixels of one row and a chunk of dc
+//      planes.  It stages the row's bins over the segment plus L columns on
+//      each side (clamped: CLAMP_TO_EDGE) and zeroes a [dc][kVoteHPitch]
+//      uint8 histogram tile in shared memory; each thread walks its pixel's
+//      <= 2L+1 taps once, adding each run of equal bins to its own column
+//      (bins outside the chunk, and so outside [0, D), are not counted), and
+//      the block writes the tile out in 16-byte stores.  Work per pixel is
+//      2L+1 shared reads plus D/16 stores, instead of D * (2L+1) compares.
+//   vote_v: a block owns 32 columns and G * TY output rows (TY = 16 where
+//      L allows); its warps are G = 2 row warps (TY rows each) times P = 4
+//      plane groups (a contiguous range of planes each).  Per step a group
+//      stages two planes' rows clamp(y0 - L + r), r in [0, G * TY + 2L), of
+//      its 32 columns (16-byte cp.async, the next two planes in flight
+//      while these are summed); each warp forms the column prefix of its
+//      own TY + 2L rows for both planes at once, one plane per 16-bit half
+//      of a uint32 (each half at most 255 * (TY + 2L) <= 65535: the plan
+//      keeps TY + 2L <= 257), and each lane's TY pixels read their window
+//      sums of both planes as one difference of two prefix entries,
+//      keeping best / best_d in registers with '>=' over ascending d.  The
+//      plane groups' results meet in shared memory, ascending, with the
+//      same '>='.  rc is read (1 + 2L / (G * TY)) times, not up to 2L+1.
+//      (A plan sweep on the H100 chose G = 2, P = 4 and plane pairs over
+//      G = 1..8 row warps and single planes, at 288x384 and at config 3.)
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,6 +90,34 @@ constexpr int kThreads = 256;
 
 unsigned int blocks_for(long long n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
+// K8's compiled-in shapes (kernels/cross_oii.py holds the same numbers and
+// the plans built on them).
+constexpr int kSharedLimit = 232448;    // 227 KB: the most a block may have
+constexpr int kVoteHTx = 128;           // vote_h: pixels (threads) per block
+constexpr int kVoteHPitch = kVoteHTx + 32;  // tile row: rows 4 apart differ
+                                        // in bank (40 words a row)
+constexpr int kVoteVRowWarps = 2;       // vote_v: row warps (G) at most
+constexpr int kVoteVGroups = 4;         // vote_v: plane groups (P) at most
+constexpr int kVoteVRows = 257;         // vote_v: TY + 2L at most (uint16)
+
+// Asynchronous 16-byte copy global -> shared (cp.async.cg, L2 only).
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most one committed group of this thread is in flight.
+__device__ __forceinline__ void wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+// Barrier `id` (1..15; 0 is __syncthreads') of the n threads that use it.
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 __global__ void cross_arms_kernel(const float* __restrict__ img,
@@ -137,50 +191,252 @@ __global__ void oii_pass_kernel(const float* __restrict__ vol,
   out[i] = acc / (float)(p - m);
 }
 
-__global__ void vote_h_kernel(const int* __restrict__ idx,
-                              const int* __restrict__ arms_l,
-                              uint8_t* __restrict__ rc, int D, int H, int W,
-                              int L) {
+// Block (x0 = kVoteHTx * blockIdx.x, row blockIdx.y, planes d_lo .. d_lo +
+// dc - 1 with d_lo = dc * blockIdx.z); shared: the tile [dc][kVoteHPitch],
+// then the bins of columns clamp(x0 - L + k), k in [0, kVoteHTx + 2L).
+// vec: W % 16 == 0 and rc on a 16-byte boundary (every tile row goes out in
+// 16-byte stores).
+__global__ void __launch_bounds__(kVoteHTx)
+    vote_h_kernel(const int* __restrict__ idx, const int* __restrict__ arms_l,
+                  uint8_t* __restrict__ rc, int D, int H, int W, int L, int dc,
+                  int vec) {
+  extern __shared__ uint4 vote_h_smem[];
+  uint8_t* const tile = reinterpret_cast<uint8_t*>(vote_h_smem);
+  int* const bins = reinterpret_cast<int*>(tile + dc * kVoteHPitch);
   const long long HW = (long long)H * W;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= HW * D) return;
-  const int x = (int)(i % W);
-  const long long p = i % HW;
-  const int d = (int)(i / HW);
-  const int hm = max(arms_l[p], -L);
-  const int hp = min(arms_l[HW + p], L);
-  const int* row = idx + (p - x);
-  int count = 0;
-  for (int j = hm; j <= hp; ++j) {
-    count += row[min(max(x + j, 0), W - 1)] == d;
+  const int t = threadIdx.x;
+  const int x0 = blockIdx.x * kVoteHTx, y = blockIdx.y;
+  const int d_lo = blockIdx.z * dc;
+  const int nd = min(dc, D - d_lo);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = t; i < nd * (kVoteHPitch / 16); i += kVoteHTx) {
+    reinterpret_cast<uint4*>(tile)[i] = zero;
   }
-  rc[i] = (uint8_t)count;
+  const int* row = idx + (long long)y * W;
+  for (int k = t; k < kVoteHTx + 2 * L; k += kVoteHTx) {
+    bins[k] = row[min(max(x0 - L + k, 0), W - 1)];
+  }
+  __syncthreads();
+  const int x = x0 + t;
+  if (x < W) {
+    const long long p = (long long)y * W + x;
+    const int lo = max(arms_l[p], -L);
+    const int hi = min(arms_l[HW + p], L);
+    const int* s = bins + t + L;
+    // Runs of equal bins go to the tile as one add; a bin's plane in the
+    // chunk is bin - d_lo, unsigned, so a bin outside it (negative, or at
+    // D and above) is never counted and never indexes the tile.
+    unsigned cur = 0u;
+    int run = 0;
+    for (int j = lo; j <= hi; ++j) {
+      const unsigned k = (unsigned)s[j] - (unsigned)d_lo;
+      if (k != cur) {
+        if (run > 0 && cur < (unsigned)nd) {
+          uint8_t* c = tile + cur * kVoteHPitch + t;
+          *c = (uint8_t)(*c + run);
+        }
+        cur = k;
+        run = 0;
+      }
+      ++run;
+    }
+    if (run > 0 && cur < (unsigned)nd) {
+      uint8_t* c = tile + cur * kVoteHPitch + t;
+      *c = (uint8_t)(*c + run);
+    }
+  }
+  __syncthreads();
+  const int w = min(kVoteHTx, W - x0);
+  uint8_t* out = rc + (long long)d_lo * HW + (long long)y * W + x0;
+  if (vec) {
+    const int n16 = w / 16;
+    for (int i = t; i < nd * n16; i += kVoteHTx) {
+      const int r = i / n16, c = i - r * n16;
+      *reinterpret_cast<uint4*>(out + r * HW + 16 * c) =
+          reinterpret_cast<const uint4*>(tile + r * kVoteHPitch)[c];
+    }
+  } else {
+    for (int i = t; i < nd * w; i += kVoteHTx) {
+      const int r = i / w, c = i - r * w;
+      out[r * HW + c] = tile[r * kVoteHPitch + c];
+    }
+  }
 }
 
-__global__ void vote_v_kernel(const uint8_t* __restrict__ rc,
-                              const int* __restrict__ arms_l,
-                              int* __restrict__ mode, int D, int H, int W,
-                              int L) {
+// Block (x0 = 32 * blockIdx.x, rows yb = G * TY * blockIdx.y ..), warps
+// w = p * G + g: plane group p (planes [p * D / P, (p + 1) * D / P), two
+// at a time), row warp g (output rows y0 = yb + g * TY ..); lane = column
+// x0 + lane, with the TY pixels (y0 + i, x).  Shared: per plane group two
+// stages of two planes [2][Rs][32] uint8, rows clamp(yb - L + r), r in
+// [0, Rs), Rs = G * TY + 2L (`stage` bytes); per warp (`region` bytes) the
+// prefix [Rw + 1][32] uint32 of its rows g * TY .. g * TY + Rw - 1, Rw =
+// TY + 2L (row 0 zero), plane d in the low and plane d + 1 in the high
+// half: each half is at most 255 * Rw <= 65535, so a 32-bit add never
+// carries into the high half, and a difference of two prefix entries of
+// one column never borrows from it; at the end the warp's best [TY][32]
+// and best_d [TY][32] int32.  vec: W % 16 == 0 and rc on a 16-byte
+// boundary (rows staged in 16-byte cp.async).
+template <int TY>
+__global__ void __launch_bounds__(32 * kVoteVRowWarps * kVoteVGroups, 2)
+    vote_v_kernel(const uint8_t* __restrict__ rc,
+                  const int* __restrict__ arms_l, int* __restrict__ mode,
+                  int D, int H, int W, int L, int G, int stage, int region,
+                  int vec) {
+  extern __shared__ uint4 vote_v_smem[];
+  uint8_t* const base = reinterpret_cast<uint8_t*>(vote_v_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int P = (blockDim.x >> 5) / G;
+  const int g = warp % G, pg = warp / G;
+  const int Rw = TY + 2 * L, Rs = G * TY + 2 * L;
+  uint8_t* const stages = base + pg * stage;
+  const int mine = P * stage + warp * region;  // bytes from base
+  uint32_t* const pre = reinterpret_cast<uint32_t*>(base + mine) + lane;
   const long long HW = (long long)H * W;
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= HW) return;
-  const int x = (int)(p % W);
-  const int y = (int)(p / W);
-  const int vm = max(arms_l[2 * HW + p], -L);
-  const int vp = min(arms_l[3 * HW + p], L);
-  int best = -1, best_d = 0;
-  for (int d = 0; d < D; ++d) {
-    const uint8_t* col = rc + d * HW + x;
-    int tab = 0;
-    for (int k = vm; k <= vp; ++k) {
-      tab += col[(long long)min(max(y + k, 0), H - 1) * W];
+  const int x0 = 32 * blockIdx.x, yb = G * TY * blockIdx.y, x = x0 + lane;
+  const int y0 = yb + g * TY;
+
+  // Window of pixel i: rows y + [lo, hi] (clipped to [-L, L]; empty where
+  // hi < lo, and outside the frame) = the warp's rows i + L + lo .. i + L +
+  // hi, summed as pre[i + L + hi + 1] - pre[i + L + lo]; oa / ob are those
+  // entries' byte offsets from base.
+  int oa[TY], ob[TY], best[TY], best_d[TY];
+#pragma unroll
+  for (int i = 0; i < TY; ++i) {
+    const int y = y0 + i;
+    int lo = 0, hi = -1;
+    if (x < W && y < H) {
+      const long long p = (long long)y * W + x;
+      lo = min(max(arms_l[2 * HW + p], -L), L + 1);
+      hi = max(min(arms_l[3 * HW + p], L), lo - 1);
     }
-    if (tab >= best) {  // ascending d: '>=' keeps the highest d on ties
-      best = tab;
-      best_d = d;
+    oa[i] = mine + 4 * lane + 128 * (i + L + hi + 1);
+    ob[i] = mine + 4 * lane + 128 * (i + L + lo);
+    best[i] = -1;
+    best_d[i] = 0;
+  }
+  pre[0] = 0u;
+
+  // The plane group's 32 * G threads copy plane d's rows clamp(yb - L + r,
+  // 0, H - 1): CLAMP_TO_EDGE re-counts the border rows.
+  const int t = 32 * g + lane, nt = 32 * G;
+  auto fill = [&](int d, uint8_t* buf) {
+    const uint8_t* src = rc + (long long)d * HW;
+    if (vec) {
+      for (int k = t; k < 2 * Rs; k += nt) {
+        const int r = k >> 1, cx = x0 + 16 * (k & 1);
+        if (cx < W) {
+          const int gy = min(max(yb - L + r, 0), H - 1);
+          copy16(buf + 32 * r + 16 * (k & 1), src + (long long)gy * W + cx);
+        }
+      }
+    } else if (x < W) {
+      for (int r = g; r < Rs; r += G) {
+        const int gy = min(max(yb - L + r, 0), H - 1);
+        buf[32 * r + lane] = src[(long long)gy * W + x];
+      }
+    }
+  };
+
+  // Step st: planes d = d_begin + 2 st and d + 1 (where d + 1 < d_end) into
+  // stage st & 1.
+  const int d_begin = (int)((long long)pg * D / P);
+  const int d_end = (int)((long long)(pg + 1) * D / P);
+  const int steps = (d_end - d_begin + 1) / 2;
+  auto fill_step = [&](int st) {
+    uint8_t* buf = stages + 64 * Rs * (st & 1);
+    const int d = d_begin + 2 * st;
+    fill(d, buf);
+    if (d + 1 < d_end) fill(d + 1, buf + 32 * Rs);
+  };
+  if (steps > 0) fill_step(0);
+  commit();
+  for (int st = 0; st < steps; ++st) {
+    group_sync(1 + pg, nt);  // the group has summed the stage refilled next
+    if (st + 1 < steps) fill_step(st + 1);
+    commit();
+    wait_all_but_one();
+    // Step st's planes, copied by the whole group, are in place.
+    group_sync(1 + pg, nt);
+    // Column prefix of the warp's Rw rows of both planes, 8 rows of loads
+    // in flight at a time.  Without a second plane the high half sums
+    // whatever the stage holds and is never read.
+    const uint8_t* c0 = stages + 64 * Rs * (st & 1) + 32 * g * TY + lane;
+    const uint8_t* c1 = c0 + 32 * Rs;
+    uint32_t s = 0u;
+    int r = 0;
+    for (; r + 8 <= Rw; r += 8) {
+      uint32_t v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        v[q] = c0[32 * (r + q)] | (uint32_t)c1[32 * (r + q)] << 16;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        s += v[q];
+        pre[32 * (r + q + 1)] = s;
+      }
+    }
+    for (; r < Rw; ++r) {
+      s += c0[32 * r] | (uint32_t)c1[32 * r] << 16;
+      pre[32 * (r + 1)] = s;
+    }
+    // A lane reads only its own column of pre: no barrier.
+    const int d = d_begin + 2 * st;
+    const bool second = d + 1 < d_end;
+#pragma unroll
+    for (int i = 0; i < TY; ++i) {
+      const uint32_t diff = *reinterpret_cast<const uint32_t*>(base + oa[i]) -
+                            *reinterpret_cast<const uint32_t*>(base + ob[i]);
+      const int t0 = (int)(diff & 0xffffu), t1 = (int)(diff >> 16);
+      if (t0 >= best[i]) {  // ascending d: '>=' keeps the highest d on ties
+        best[i] = t0;
+        best_d[i] = d;
+      }
+      if (second && t1 >= best[i]) {
+        best[i] = t1;
+        best_d[i] = d + 1;
+      }
     }
   }
-  mode[p] = best_d;
+
+  __syncwarp();  // the warp's lanes are done with its prefix
+  int* const res = reinterpret_cast<int*>(base + mine);
+#pragma unroll
+  for (int i = 0; i < TY; ++i) {
+    res[32 * i + lane] = best[i];
+    res[32 * (TY + i) + lane] = best_d[i];
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < 32 * G * TY; q += blockDim.x) {
+    const int row = q >> 5, gq = row / TY, iq = row - gq * TY;
+    const int xq = x0 + (q & 31), yq = yb + row;
+    const int e = 32 * iq + (q & 31);
+    int bv = -1, bd = 0;
+    for (int pq = 0; pq < P; ++pq) {  // ascending plane groups, '>=' again
+      const int* rw = reinterpret_cast<const int*>(
+          base + P * stage + (pq * G + gq) * region);
+      if (rw[e] >= bv) {
+        bv = rw[e];
+        bd = rw[32 * TY + e];
+      }
+    }
+    if (xq < W && yq < H) mode[(long long)yq * W + xq] = bd;
+  }
+}
+
+template <int TY>
+int launch_vote_v(const uint8_t* rc, const int* arms_l, int* mode, int D,
+                  int H, int W, int L, int G, int P, int stage, int region,
+                  int shared, int vec, cudaStream_t s) {
+  auto kernel = vote_v_kernel<TY>;
+  const unsigned gy = (unsigned)((H + G * TY - 1) / (G * TY));
+  if (gy > 65535u) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((W + 31) / 32, gy), 32 * G * P, shared, s>>>(
+      rc, arms_l, mode, D, H, W, L, G, stage, region, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -222,25 +478,59 @@ extern "C" int oii_pass_f32(const float* vol, const int* arms_l,
 }
 
 // idx: (H, W) int32 bins; arms_l: (4, H, W) int32; rc: (D, H, W) uint8.
-// Returns cudaGetLastError().
+// The plan is kernels/cross_oii.py vote_h_tiles: dc planes per chunk in
+// `chunks` chunks, `shared` bytes a block.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan that does not cover the D planes or does
+// not match the shared layout.
 extern "C" int vote_h_u8(const int* idx, const int* arms_l, uint8_t* rc,
-                         int D, int H, int W, int L, void* stream) {
-  const long long n = (long long)D * H * W;
-  if (n > 0) {
-    vote_h_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        idx, arms_l, rc, D, H, W, L);
+                         int D, int H, int W, int L, int dc, int chunks,
+                         int shared, void* stream) {
+  if ((long long)D * H * W == 0) return (int)cudaGetLastError();
+  if (L < 0 || dc < 1 || chunks < 1 || chunks > 65535 || H > 65535 ||
+      (long long)dc * (chunks - 1) >= D || (long long)dc * chunks < D ||
+      shared != dc * kVoteHPitch + 4 * (kVoteHTx + 2 * L) ||
+      shared > kSharedLimit) {
+    return (int)cudaErrorInvalidValue;
   }
+  cudaError_t err = cudaFuncSetAttribute(
+      vote_h_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = W % 16 == 0 && ((uintptr_t)rc & 15) == 0;
+  vote_h_kernel<<<dim3((W + kVoteHTx - 1) / kVoteHTx, H, chunks), kVoteHTx,
+                  shared, (cudaStream_t)stream>>>(idx, arms_l, rc, D, H, W, L,
+                                                  dc, vec);
   return (int)cudaGetLastError();
 }
 
-// rc: (D, H, W) uint8; arms_l: (4, H, W) int32; mode: (H, W) int32.
-// Returns cudaGetLastError().
+// rc: (D, H, W) uint8; arms_l: (4, H, W) int32; mode: (H, W) int32.  The
+// plan is kernels/cross_oii.py vote_v_tiles: TY rows a warp, G row warps, P
+// plane groups, a group's `stage` bytes, a warp's `region` bytes, `shared`
+// bytes a block.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// plan that does not match the shared layout.
 extern "C" int vote_v_i32(const uint8_t* rc, const int* arms_l, int* mode,
-                          int D, int H, int W, int L, void* stream) {
-  const long long n = (long long)H * W;
-  if (n > 0) {
-    vote_v_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        rc, arms_l, mode, D, H, W, L);
+                          int D, int H, int W, int L, int ty, int G, int P,
+                          int stage, int region, int shared, void* stream) {
+  if ((long long)H * W == 0) return (int)cudaGetLastError();
+  const int rw = ty + 2 * L;
+  if (L < 0 || G < 1 || G > kVoteVRowWarps || P < 1 || P > kVoteVGroups ||
+      rw > kVoteVRows || stage != 128 * (G * ty + 2 * L) || region % 16 ||
+      region < 128 * (rw + 1) || region < 256 * ty ||
+      shared != P * stage + G * P * region || shared > kSharedLimit) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const int vec = W % 16 == 0 && ((uintptr_t)rc & 15) == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define VOTE_V(T)                                                         \
+  case T:                                                                 \
+    return launch_vote_v<T>(rc, arms_l, mode, D, H, W, L, G, P, stage,    \
+                            region, shared, vec, s)
+  switch (ty) {
+    VOTE_V(16);
+    VOTE_V(8);
+    VOTE_V(4);
+    VOTE_V(2);
+    VOTE_V(1);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VOTE_V
 }

@@ -7,12 +7,17 @@ oii_vpass_pallas and histogram_vote_pallas
 ops/cross.py `cross_arms`, ops/oii.py `oii_pass_plain` and ops/vote.py
 `vote_counts_plain` / `vote_mode_plain`: a CPU tensor takes them, a CUDA
 tensor launches the kernel or raises.
+
+K8's tile plans are `vote_h_tiles` and `vote_v_tiles`; the wrappers pass
+them to the CUDA entry points, and tests/test_torch_vote_tiles.py walks
+both in numpy as the CUDA code indexes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -23,6 +28,95 @@ from ..ops.cross import cross_arms as cross_arms_plain
 from ..ops.oii import oii_pass_plain
 from ..ops.vote import _check_arm_len, vote_counts_plain, vote_mode_plain
 
+# K8's shapes, compiled into csrc/cross_oii.cu (kSharedLimit, kVoteH*,
+# kVoteV*), and the shared budget of vote_h's plan.
+SHARED_LIMIT = 232_448          # 227 KB: the most shared memory of a block
+VOTE_H_TX = 128                 # vote_h: pixels of one row per block
+VOTE_H_PITCH = VOTE_H_TX + 32   # a histogram tile row, bytes
+VOTE_H_SHARED = 49_152          # vote_h: a chunk's planes fit this
+VOTE_V_TX = 32                  # vote_v: columns per block (a warp's lanes)
+VOTE_V_TY = (16, 8, 4, 2, 1)    # vote_v: output rows per warp, compiled in
+VOTE_V_ROW_WARPS = 2            # vote_v: row warps sharing a plane's staging
+VOTE_V_GROUPS = 4               # vote_v: plane groups (ranges of planes)
+VOTE_V_ROWS = 257               # vote_v: TY + 2L at most: a 16-bit column
+                                # prefix holds 255 * 257 = 65535
+GRID_YZ = 65_535                # the most blocks along grid y and z
+
+
+class VoteHPlan(NamedTuple):
+    dc: int            # planes per chunk (the histogram tile's rows)
+    chunks: int        # chunks of planes along grid z
+    grid: tuple        # (blocks along x, rows, chunks)
+    shared_bytes: int  # tile [dc][VOTE_H_PITCH] + bins [VOTE_H_TX + 2L] int32
+
+
+class VoteVPlan(NamedTuple):
+    ty: int            # output rows per warp (pixels per lane)
+    g: int             # row warps of a plane group (the block's rows: g * ty)
+    p: int             # plane groups, each over a contiguous range of planes
+    rows: int          # a warp's prefix rows, ty + 2L
+    stage_bytes: int   # a plane group's two stages of two planes,
+                       # [2][2][g * ty + 2L][32] uint8
+    region: int        # a warp's prefix [rows + 1][32] uint32 (two planes),
+                       # then its results [2][ty][32] int32
+    grid: tuple        # (blocks along x, blocks along y)
+    shared_bytes: int  # p * stage_bytes + g * p * region
+
+
+def vote_h_tiles(D: int, H: int, W: int, L: int) -> VoteHPlan:
+    """The plan of one vote_h launch: a block owns VOTE_H_TX pixels of one
+    row and the planes of one chunk; the chunks are as few as let a tile
+    of a chunk's planes and the staged bins fit VOTE_H_SHARED bytes, and
+    equal.  Raises ValueError where no chunk of one plane fits, or the grid
+    is too tall: the kernel has no other route."""
+    stage = 4 * (VOTE_H_TX + 2 * L)
+    most = (VOTE_H_SHARED - stage) // VOTE_H_PITCH
+    if D < 1 or most < 1:
+        raise ValueError(f"no vote_h plan for D={D}, L={L}: a plane's tile "
+                         f"row and the bins need {VOTE_H_PITCH + stage} "
+                         f"shared bytes of {VOTE_H_SHARED}")
+    chunks = -(-D // most)
+    dc = -(-D // chunks)
+    if H > GRID_YZ or chunks > GRID_YZ:
+        raise ValueError(f"no vote_h plan for {H} rows in {chunks} chunks: "
+                         f"the grid holds {GRID_YZ} along y and z")
+    return VoteHPlan(dc, chunks, (-(-W // VOTE_H_TX), H, chunks),
+                     dc * VOTE_H_PITCH + stage)
+
+
+def vote_v_tiles(D: int, H: int, W: int, L: int) -> VoteVPlan:
+    """The plan of one vote_v launch: a block owns VOTE_V_TX columns and
+    g * TY output rows, TY the largest of VOTE_V_TY with TY + 2L <=
+    VOTE_V_ROWS; its warps are g = VOTE_V_ROW_WARPS row warps (at most the
+    frame's TY-row tiles) times p = VOTE_V_GROUPS plane groups (at most D),
+    each group summing two planes per step; then p, and then g, are cut
+    until the block fits SHARED_LIMIT.  Raises ValueError where even TY = 1
+    does not hold (L > 128) or the grid is too tall: the kernel has no
+    other route."""
+    ty = next((t for t in VOTE_V_TY if t + 2 * L <= VOTE_V_ROWS), None)
+    if ty is None:
+        raise ValueError(f"no vote_v plan for L={L}: a column prefix of "
+                         f"1 + 2L = {1 + 2 * L} uint8 rows may pass 65535 "
+                         f"(at most {VOTE_V_ROWS} rows)")
+    rows = ty + 2 * L
+    region = max(128 * (rows + 1), 256 * ty)
+    g = max(1, min(VOTE_V_ROW_WARPS, -(-H // ty)))
+    p = max(1, min(VOTE_V_GROUPS, D))
+    size = lambda g, p: p * 128 * (g * ty + 2 * L) + g * p * region
+    while size(g, p) > SHARED_LIMIT and p > 1:
+        p -= 1
+    while size(g, p) > SHARED_LIMIT and g > 1:
+        g -= 1
+    if size(g, p) > SHARED_LIMIT:
+        raise ValueError(f"no vote_v plan for L={L}: one warp needs "
+                         f"{size(1, 1)} shared bytes of {SHARED_LIMIT}")
+    grid = (-(-W // VOTE_V_TX), -(-H // (g * ty)))
+    if grid[1] > GRID_YZ:
+        raise ValueError(f"no vote_v plan for {H} rows: {grid[1]} blocks of "
+                         f"{g * ty} rows pass the grid's {GRID_YZ}")
+    return VoteVPlan(ty, g, p, rows, 128 * (g * ty + 2 * L), region, grid,
+                     size(g, p))
+
 
 @functools.cache
 def _lib():
@@ -30,8 +124,8 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cross_arms_f32.argtypes = [p, p, i, i, i, i, f, i, i, p]
     lib.oii_pass_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
-    lib.vote_h_u8.argtypes = [p, p, p, i, i, i, i, p]
-    lib.vote_v_i32.argtypes = [p, p, p, i, i, i, i, p]
+    lib.vote_h_u8.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.vote_v_i32.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     for fn in (lib.cross_arms_f32, lib.oii_pass_f32, lib.vote_h_u8,
                lib.vote_v_i32):
         fn.restype = i
@@ -134,10 +228,12 @@ def vote_h(idx: torch.Tensor, arms_l: torch.Tensor, num_disp: int,
     if idx.device.type == "cpu":
         return vote_counts_plain(idx, arms_l, num_disp, arm_len)
     require_cuda(idx, arms_l)
+    plan = vote_h_tiles(num_disp, H, W, arm_len)
     rc = torch.empty((num_disp, H, W), dtype=torch.uint8, device=idx.device)
     with torch.cuda.device(idx.device):
         err = _lib().vote_h_u8(idx.data_ptr(), arms_l.data_ptr(), rc.data_ptr(),
-                               num_disp, H, W, arm_len, _stream(idx))
+                               num_disp, H, W, arm_len, plan.dc, plan.chunks,
+                               plan.shared_bytes, _stream(idx))
     raise_on_error(err, "vote_h")
     LAUNCHES["vote_h"] += 1
     return rc
@@ -157,10 +253,13 @@ def vote_v(rc: torch.Tensor, arms_l: torch.Tensor, arm_len: int) -> torch.Tensor
     if rc.device.type == "cpu":
         return vote_mode_plain(rc, arms_l, arm_len)
     require_cuda(rc, arms_l)
+    plan = vote_v_tiles(D, H, W, arm_len)
     mode = torch.empty((H, W), dtype=torch.int32, device=rc.device)
     with torch.cuda.device(rc.device):
         err = _lib().vote_v_i32(rc.data_ptr(), arms_l.data_ptr(),
-                                mode.data_ptr(), D, H, W, arm_len, _stream(rc))
+                                mode.data_ptr(), D, H, W, arm_len, plan.ty,
+                                plan.g, plan.p, plan.stage_bytes, plan.region,
+                                plan.shared_bytes, _stream(rc))
     raise_on_error(err, "vote_v")
     LAUNCHES["vote_v"] += 1
     return mode

@@ -24,14 +24,15 @@ from stereo_matchin_tpu_torch.kernels.asw_aggregation import (asw_den, asw_pass,
 from stereo_matchin_tpu_torch.kernels.cross_oii import (cross_arms, oii_pass,
                                                         vote_h, vote_v)
 from stereo_matchin_tpu_torch.kernels.sad_volume import sad_volume
+from stereo_matchin_tpu_torch.kernels import cross_oii as kc
 from stereo_matchin_tpu_torch.kernels import wta_gather as kw
 from stereo_matchin_tpu_torch.kernels.wta_gather import two_min, wta_diag
 from stereo_matchin_tpu_torch.models import asw, cross_based, tiled
 from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
                                                    _two_min_plain)
 
-from .torch_support import (cuda_device, k4_queued, max_ulp, n, outlier_d1,
-                            unorm8_pair)
+from .torch_support import (VOTE_EDGES, cuda_device, k4_queued, max_ulp, n,
+                            outlier_d1, unorm8_pair, vote_inputs)
 
 pytestmark = pytest.mark.cuda
 EPS, BIG = 1e-5, 1e5
@@ -266,20 +267,65 @@ def test_oii_pass_kernel_bit_equal_to_plain(H, W, D, L):
     assert max_ulp(out, tops.oii_pass_plain(temp, al, ar, L, 1, d0)) == 0
 
 
-@pytest.mark.parametrize("H,W,D,L", CROSS_SHAPES + [(288, 384, 301, 25)])
+@pytest.mark.parametrize("H,W,D,L", CROSS_SHAPES + [(288, 384, 301, 25)]
+                         + list(VOTE_EDGES.values()))
 def test_vote_kernels_equal_plain(H, W, D, L):
-    """Bins from a random map, and at D = 301 (d_max 300) bins above 256."""
+    """Bins from a random map, and at D = 301 (d_max 300) bins above 256;
+    at the plans' edge shapes (torch_support.VOTE_EDGES) runs of bins with
+    ties and bins outside [0, D), odd arms, and vote_v also on an rc one
+    byte off a 16-byte boundary (no 16-byte copies)."""
     dev = cuda_device()
-    ml, _ = _scene(dev, H, W, 60)
-    al = tops.cross_arms(ml, L)
     rng = np.random.default_rng(H + D)
-    idx = torch.from_numpy(rng.integers(max(0, D - 60), D, (H, W)).astype(
-        np.int32)).to(dev)
+    if (H, W, D, L) in VOTE_EDGES.values():
+        idx, al = (torch.from_numpy(a).to(dev)
+                   for a in vote_inputs(rng, D, H, W, L))
+    else:
+        ml, _ = _scene(dev, H, W, 60)
+        al = tops.cross_arms(ml, L)
+        idx = torch.from_numpy(rng.integers(max(0, D - 60), D, (H, W)).astype(
+            np.int32)).to(dev)
     rc = _launched("vote_h", vote_h, idx, al, D, L)
     want = tops.vote_counts_plain(idx, al, D, L)
     assert rc.dtype == want.dtype and torch.equal(rc, want)
     mode = _launched("vote_v", vote_v, rc, al, L)
-    assert torch.equal(mode, tops.vote_mode_plain(want, al, L))
+    want_mode = tops.vote_mode_plain(want, al, L)
+    assert torch.equal(mode, want_mode)
+    off = torch.empty(rc.numel() + 1, dtype=torch.uint8, device=dev)[1:]
+    off = off.view(rc.shape).copy_(rc)
+    assert off.data_ptr() % 16 == 1
+    assert torch.equal(_launched("vote_v", vote_v, off, al, L), want_mode)
+
+
+def test_vote_library_refuses_a_plan_off_its_layout():
+    """The entry points take the wrappers' plans (kernels/cross_oii.py
+    vote_h_tiles / vote_v_tiles) and refuse one that does not cover the
+    planes or match their shared layout, launching nothing."""
+    dev = cuda_device()
+    D, H, W, L = 5, 8, 32, 4
+    idx = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    al = torch.zeros((4, H, W), dtype=torch.int32, device=dev)
+    rc = torch.zeros((D, H, W), dtype=torch.uint8, device=dev)
+    mode = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    h, v = kc.vote_h_tiles(D, H, W, L), kc.vote_v_tiles(D, H, W, L)
+    s = torch.cuda.current_stream(dev).cuda_stream
+    lib, invalid = kc._lib(), 1                 # cudaErrorInvalidValue
+
+    def vote_h(dc, chunks, shared):
+        return lib.vote_h_u8(idx.data_ptr(), al.data_ptr(), rc.data_ptr(), D,
+                             H, W, L, dc, chunks, shared, s)
+
+    def vote_v(ty, g, p, stage, region, shared):
+        return lib.vote_v_i32(rc.data_ptr(), al.data_ptr(), mode.data_ptr(),
+                              D, H, W, L, ty, g, p, stage, region, shared, s)
+
+    assert vote_h(h.dc - 1, h.chunks, h.shared_bytes) == invalid
+    assert vote_h(h.dc, h.chunks, h.shared_bytes + 1) == invalid
+    assert vote_v(v.ty, v.g, v.p, v.stage_bytes, v.region,
+                  v.shared_bytes - 16) == invalid
+    assert vote_v(v.ty, v.g, v.p + 4, v.stage_bytes, v.region,
+                  v.shared_bytes) == invalid
+    torch.cuda.synchronize()
+    assert torch.equal(mode, torch.zeros_like(mode))
 
 
 def test_cross_slice_through_kernels_equals_plain_ops_and_counts_launches():

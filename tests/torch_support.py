@@ -77,6 +77,49 @@ def k4_queued(d1, D: int, head: int, sparse: int) -> np.ndarray:
     return np.flatnonzero(longer & (lanes <= sparse))
 
 
+# Edge shapes of K8's plans, (H, W, D, L) (kernels/cross_oii.py
+# vote_h_tiles / vote_v_tiles): W off 16 and under a block of either
+# kernel; W under one warp; W a multiple of 16 off both blocks (16-byte
+# copies, a ragged last block); H under 2L + 1; L = 1 and L = 127; one
+# plane; D = 301 (d_max 300); a D that forces vote_h's chunks; the main
+# path's width; vote_v with two row warps and a ragged block row, plane
+# groups left an odd plane, on W off 16 and on 16-byte copies; L = 127
+# with its plane groups cut to fit shared memory.
+VOTE_EDGES = {
+    "W_off16_under_blocks": (11, 45, 9, 4),
+    "W_under_warp": (6, 20, 7, 3),
+    "W_multiple_of_16_ragged_block": (5, 176, 12, 6),
+    "H_under_2L_plus_1": (5, 70, 13, 25),
+    "L1": (9, 50, 10, 1),
+    "L127": (7, 300, 6, 127),
+    "D1": (8, 64, 1, 5),
+    "D301": (3, 40, 301, 25),
+    "D_chunks_700": (2, 48, 700, 25),
+    "main_width": (3, 384, 61, 25),
+    "row_warps_odd_planes": (37, 90, 11, 5),
+    "row_warps_16_byte_copies": (40, 96, 9, 7),
+    "L127_groups_cut": (40, 64, 8, 127),
+}
+
+
+def vote_inputs(rng, D: int, H: int, W: int, L: int):
+    """K8 inputs (idx (H, W), arms (4, H, W), int32 numpy): bins in runs of
+    three (as a disparity map has), a fifth of them one shared bin (ties),
+    some below 0 and at D and above (never counted); arms of every length
+    up to past L, with a few empty or inverted windows and v minus arms
+    past L."""
+    runs = rng.integers(-2, D + 2, (H, -(-W // 3)))
+    idx = np.repeat(runs, 3, axis=1)[:, :W].astype(np.int32)
+    idx[rng.random((H, W)) < 0.2] = rng.integers(0, D)
+    a = np.stack([-rng.integers(0, L + 4, (H, W)), rng.integers(0, L + 4, (H, W)),
+                  -rng.integers(0, L + 4, (H, W)), rng.integers(0, L + 4, (H, W))])
+    m = rng.random((H, W)) < 0.05
+    a[0][m], a[1][m] = 3, -2                  # hm > hp: no taps
+    a[2][m], a[3][m] = 2, -1
+    a[2][rng.random((H, W)) < 0.03] = L + 3   # vm > L: no rows
+    return idx, a.astype(np.int32)
+
+
 def unorm8_pair(rng, H: int, W: int):
     """A random (H, W, 3) pair on the UNORM8 grid; the right view is the
     left one shifted by 2 columns so that matching has a true answer."""
