@@ -7,8 +7,8 @@ sm_90a), nvcc and PyTorch built for CUDA:
     python3 chip_smoke.py
 
 It builds the CUDA kernels K1-K8 from `stereo_matchin_tpu_torch/csrc`,
-holds each against its plain PyTorch version on the card (K1/K2 also at
-the edge shapes of their tile plans), drives the ASW
+holds each against its plain PyTorch version on the card (K1/K2, K7 and K8
+also at the edge shapes of their tile plans), drives the ASW
 and the cross-based pipelines at REFERENCE_CONFIG on the committed
 fixture pair through the kernels and through the plain ops, checks the
 launch counts of each path and its output against the JAX package's
@@ -17,7 +17,8 @@ on PNG files.  Then the band drivers: the windowed K2 and the row-anchored
 K5 and K7-v against their plain versions, the ASW band drivers with
 disparity chunks against the whole frame (kernels and plain ops), every
 kernel against its plain version at BASELINE config 3's shapes (2880x1988,
-280 disparities), both methods at config 3 whole, wavefront-banded and
+280 disparities; K7 also on a colour ramp whose windows are nearly all 2L +
+1 taps long), both methods at config 3 whole, wavefront-banded and
 halo-banded, bit-equal, with times and peak device memory held against
 the band plan, and `run --bands 3`.  Before the last line it prints one
 JSON object with each kernel's launches on its path, largest error against
@@ -243,6 +244,41 @@ def scene_pair(seed, H, W, d_max):
                                         d_max)
     return tuple(torch.from_numpy(a.astype(np.float32)).cuda()
                  for a in (left, right))
+
+
+def ramp_pair(H, W, shift=37):
+    """A smooth colour ramp on the card: each channel a triangle wave that
+    moves 0.5/255 a pixel along x and y or less, so it changes by less than
+    tau = 0.1 over 2L = 50 pixels and nearly every cross arm reaches its
+    full length; the right view is the left one moved by `shift` columns
+    (disparity `shift`, wrapped at the right border)."""
+    import torch
+
+    y = torch.arange(H, device="cuda", dtype=torch.float32)[:, None]
+    x = torch.arange(W, device="cuda", dtype=torch.float32)[None, :]
+    s = 0.5 / 255
+
+    def tri(t):
+        return 1.0 - ((t % 2.0) - 1.0).abs()
+
+    left = torch.stack([tri(x * s + 0 * y), tri(y * s + 0 * x),
+                        tri((x + 2 * y) * s / 3 + 0.5)], dim=-1).contiguous()
+    return left, torch.roll(left, -shift, dims=1).contiguous()
+
+
+def window_taps(al, L):
+    """(h, v): the taps of all windows of a pass along each axis, from the
+    left arms: |minus| and |plus| within L, plus one, per pixel.  An OII or
+    vote pass adds at most that many values per output (the OII's combined
+    arms are no longer than the left ones)."""
+    taps = lambda m, p: int((m.abs().clamp(max=L) + p.abs().clamp(max=L)
+                             + 1).sum())
+    return taps(al[0], al[1]), taps(al[2], al[3])
+
+
+def window_means(al, L):
+    """Mean window length (taps) of a pass along each axis."""
+    return tuple(t / al[0].numel() for t in window_taps(al, L))
 
 
 def aggregation_strips(left, right, cfg):
@@ -594,16 +630,43 @@ def check_vote_edges(stats, kernels):
     torch.cuda.synchronize()
 
 
+def check_oii_edges(stats, kernels):
+    """K7 at the edge shapes of its plans (tests/torch_support.py OII_EDGES,
+    the card tests' shapes), both axes, against its plain version (0 ulp),
+    one launch each asserted, also on a volume one float off a 16-byte
+    boundary (4-byte copies); `D45_chunks` with chunks of 23 planes."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import cross_oii as kc
+    from tests.torch_support import OII_EDGES, oii_inputs
+
+    blocks = kc.OII_BLOCKS
+    for case, (D, H, W, L, d0, row0, h_glob, full) in OII_EDGES.items():
+        kc.OII_BLOCKS = 1 if case == "D45_chunks" else blocks
+        vol, al, ar = (torch.from_numpy(a).cuda() for a in oii_inputs(
+            np.random.default_rng(D * 31 + H * W + L), D, H, W, L, full))
+        off = torch.empty(vol.numel() + 1, device=vol.device)[1:].view(
+            vol.shape).copy_(vol)
+        for axis, anchor in ((1, (row0, h_glob)), (2, (0, None))):
+            key = "oii_pass_v" if axis == 1 else "oii_pass_h"
+            want = ops.oii_pass_plain(vol, al, ar, L, axis, d0, *anchor)
+            for where, v in (("", vol), (" vol off 16 bytes", off)):
+                before = kernels.LAUNCHES[key]
+                got = kc.oii_pass(v, al, ar, L, axis, d0, *anchor)
+                if kernels.LAUNCHES[key] != before + 1:
+                    raise AssertionError(f"{key}: not one launch")
+                compare(f"{key} edge {case}{where}", [got], [want], stats[key])
+    kc.OII_BLOCKS = blocks
+    torch.cuda.synchronize()
+
+
 def cross_work(ml, mr, al, ar, D, L):
     """{kernel: (bytes, operations)} of K5-K8 on one frame or band of D
     planes: each input read once, each output written once; a pass over
     one axis reads only that axis's two arm planes."""
     H, W = ml.shape[:2]
-    # Window lengths of this run's arms, [minus, plus] within [-L, L]: an
-    # OII or vote pass adds at most that many values per output (the OII's
-    # combined arms are no longer than the left ones).
-    win_h = int((al[0].abs().clamp(max=L) + al[1].abs().clamp(max=L) + 1).sum())
-    win_v = int((al[2].abs().clamp(max=L) + al[3].abs().clamp(max=L) + 1).sum())
+    win_h, win_v = window_taps(al, L)
     vol, rc, plane = 4 * D * H * W, D * H * W, 4 * H * W
     arms = 2 * plane                      # one view's arms along one axis
     return {
@@ -843,40 +906,63 @@ def turns(kern, plain, kreps, preps):
             f"plain {p1:.4f} / {p2:.4f} ms")
 
 
+def band_inputs(left, right, cfg):
+    """(row0, row1, ml, mr, al, ar): the image rows row0 .. row1 - 1 of the
+    cross wavefront's last band at config 3 (rows past the frame bottom
+    edge-replicated), median-filtered, and their arms anchored by
+    row0/h_glob."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.models import wavefront_cross
+
+    H, L = left.shape[0], cfg.arm_len
+    g = wavefront_cross.plan_bands_cross(H, CONFIG3_BANDS, cfg)[-1]
+    row0, row1 = g.g0, g.e + 3 * L + 3
+    rows = torch.arange(row0, row1, device=left.device).clamp(max=H - 1)
+    ml, mr = (ops.median3x3(x)[rows].contiguous() for x in (left, right))
+    al, ar = (ops.cross_arms(m, L, cfg.tau, cfg.legacy_cross_arm_quirk, row0,
+                             H) for m in (ml, mr))
+    return row0, row1, ml, mr, al, ar
+
+
 def cross_kernels_config3(left, right, cfg, stats, smi):
     """K5-K8 against their plain versions at config 3's shapes, all
     cfg.num_disp planes, on the image rows of the cross wavefront's last
     band: arms and the OII vertical pass anchored by row0/h_glob, rows
     past the frame bottom edge-replicated.  Each is timed there in turns
-    with its plain version beside its bound; one `config3_cross` JSON
+    with its plain version beside its bound (K7 with its mean window
+    length); K7 again on the same band of a colour ramp (ramp_pair), whose
+    windows are nearly all of full length; one `config3_cross` JSON
     line."""
     import torch
 
     from stereo_matchin_tpu_torch import ops
     from stereo_matchin_tpu_torch.kernels import cross_oii as kc
     from stereo_matchin_tpu_torch.kernels.sad_volume import sad_volume
-    from stereo_matchin_tpu_torch.models import wavefront_cross
 
     H = left.shape[0]
     D, L, tau, q = cfg.num_disp, cfg.arm_len, cfg.tau, cfg.legacy_cross_arm_quirk
-    g = wavefront_cross.plan_bands_cross(H, CONFIG3_BANDS, cfg)[-1]
-    row0, row1 = g.g0, g.e + 3 * L + 3
-    rows = torch.arange(row0, row1, device=left.device).clamp(max=H - 1)
-    ml, mr = (ops.median3x3(x)[rows].contiguous() for x in (left, right))
+    row0, row1, ml, mr, al, ar = band_inputs(left, right, cfg)
     tag = f"config 3 rows {row0}..{row1} of {H}, D={D}"
-    al, ar = (ops.cross_arms(m, L, tau, q, row0, H) for m in (ml, mr))
     work = cross_work(ml, mr, al, ar, D, L)
     c3 = {}
 
-    # Kernel calls per timed run: 5 of the volume passes (3-6 ms each), 40
+    # Kernel calls per timed run: 5 of the volume passes (1-6 ms each), 40
     # of K5 and K8 (0.1-0.7 ms), so that no run lasts under a few ms.
-    def timed_turns(name, kern, plain, kreps):
+    def timed_turns(name, kern, plain, kreps, work=work, key=None, label=tag,
+                    arms=al):
+        key = key or name
         times, line = turns(kern, plain, kreps, 1)
         entry = dict(times, bytes=work[name][0], ops=work[name][1])
         entry["bound_ms"], entry["bound_by"] = bound(entry)
-        c3[name] = entry
-        print(f"  {name}: {line}; bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']})  ({tag}; {smi})")
+        taps = ""
+        if name.startswith("oii_pass"):
+            entry["mean_window"] = window_means(arms, L)[name == "oii_pass_v"]
+            taps = f", mean window {entry['mean_window']:.2f} taps"
+        c3[key] = entry
+        print(f"  {key}: {line}; bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']}{taps})  ({label}; {smi})")
 
     for side, m, want in (("left", ml, al), ("right", mr, ar)):
         compare(f"cross_arms {tag} {side}",
@@ -913,6 +999,28 @@ def cross_kernels_config3(left, right, cfg, stats, smi):
     timed_turns("vote_v", lambda: kc.vote_v(rc, al, L),
                 lambda: ops.vote_mode_plain(rc, al, L), 40)
     del rc, idx, al, ar, ml, mr
+
+    # K7 again at the band's shape on long windows: a smooth colour ramp
+    # (ramp_pair), nearly every arm at its full length L.
+    _, _, ml, mr, al, ar = band_inputs(*ramp_pair(H, left.shape[1]), cfg)
+    work = cross_work(ml, mr, al, ar, D, L)
+    label = f"{tag}, colour ramp moved 37 columns"
+    cost = ops.sad_cost_volume(ml, mr, D, 1.0)
+    temp = ops.oii_pass_plain(cost, al, ar, L, 2)
+    compare(f"oii_pass_h {label}", [kc.oii_pass(cost, al, ar, L, 2)], [temp],
+            stats["oii_pass_h"])
+    timed_turns("oii_pass_h", lambda: kc.oii_pass(cost, al, ar, L, 2),
+                lambda: ops.oii_pass_plain(cost, al, ar, L, 2), 5, work,
+                "oii_pass_h_long", label, al)
+    del cost
+    compare(f"oii_pass_v {label}",
+            [kc.oii_pass(temp, al, ar, L, 1, 0, row0, H)],
+            [ops.oii_pass_plain(temp, al, ar, L, 1, 0, row0, H)],
+            stats["oii_pass_v"])
+    timed_turns("oii_pass_v", lambda: kc.oii_pass(temp, al, ar, L, 1, 0, row0, H),
+                lambda: ops.oii_pass_plain(temp, al, ar, L, 1, 0, row0, H), 5,
+                work, "oii_pass_v_long", label, al)
+    del temp, al, ar, ml, mr
     torch.cuda.synchronize()
     print(json.dumps({"config3_cross": c3, "rows": [row0, row1], "D": D,
                       "card": smi}))
@@ -1301,6 +1409,7 @@ def main() -> int:
                    "375x450 synthetic": scene_pair(3, 375, 450, cfg.d_max)}
     check_cross_kernels(cross_pairs, cfg, stats)
     check_vote_edges(stats, kernels)
+    check_oii_edges(stats, kernels)
     time_cross_kernels(left, right, cfg, stats, smi)
 
     phase("8. cross slice at REFERENCE_CONFIG: kernels against plain ops")

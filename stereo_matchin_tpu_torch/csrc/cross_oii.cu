@@ -46,11 +46,36 @@
 // absolute values, and the h pass's means of them), and x + (+0.0) == x for
 // every such x, so the sums are bit-identical.
 //
-// Bound: K7 is a memory-bound volume pass: one thread per output element,
-// x fastest, so loads and stores are coalesced and the up to 2L+1 taps of
-// neighbouring threads share cache lines (L1/L2).  K5 runs one thread per
-// pixel.  The anchoring (row0, h_glob) serves the band drivers: a band's
-// window of rows gives every kept row the values of the whole frame.
+// K7 reads and writes the volume once (its byte bound); the plan is
+// kernels/cross_oii.py oii_tiles, which the wrapper passes to oii_pass_f32
+// (tests/test_torch_oii_tiles.py walks both axes in numpy).  A block owns a
+// tile of pixels and a chunk of dc planes (at most 32, fewer where the grid
+// needs more blocks).  It stages the chunk's right arms of its rows once,
+// at the columns max(x - d0 - d, 0) of its x and d, as int2 (minus, plus);
+// each thread keeps its pixels' left arms in registers.  Per plane it
+// stages the volume its windows reach (cp.async, the next plane in flight),
+// and each thread walks the union of its outputs' windows once, ascending,
+// reading each staged value once into a register and adding it to every
+// output whose window holds it (a predicated add; unconditionally over the
+// positions that all hold).  Indices are 32-bit within a plane, 64-bit
+// across planes; no % or / per output but the IEEE divide.
+//   axis 1: 32 columns (lane = column) x TY = 8 * R rows (R = kOiiRows =
+//      4 a thread); the plane's rows y0 - L .. y0 + TY + L - 1 of those
+//      columns are staged (16-byte copies where W % 4 == 0), so the volume
+//      crosses L2 1 + 2L / TY times, and lanes read their own column: no
+//      bank conflict.
+//   axis 2: 8 rows (warp = row) x 32 * C columns (C = kOiiCols = 2 a
+//      thread); each row's segment x0 - LA .. x0 + 32C + LA - 1 (LA = L
+//      rounded up to 4) is staged, and a thread reads C columns a load.
+//      Where all C windows share a core, the positions before it lie below
+//      every window's end and those after it above every start, so each
+//      fringe tests one bound.
+// R = 4 and C = 2 were faster on the H100 than R = 2, 8 and C = 4 (PERF.md,
+// K7).  What limits K7 there is issue, not bytes: the walk's predicated adds,
+// paid for the longest window of a warp's lanes (PERF.md, K7).  K5 runs
+// one thread per pixel.  The anchoring (row0, h_glob) serves the band
+// drivers: a band's window of rows gives every kept row the values of the
+// whole frame.
 //
 // K8 is bound by its bytes: rc (D, H, W) uint8 is written once by the count
 // and read once by the mode; the plans are kernels/cross_oii.py
@@ -101,11 +126,23 @@ constexpr int kVoteHPitch = kVoteHTx + 32;  // tile row: rows 4 apart differ
 constexpr int kVoteVRowWarps = 2;       // vote_v: row warps (G) at most
 constexpr int kVoteVGroups = 4;         // vote_v: plane groups (P) at most
 constexpr int kVoteVRows = 257;         // vote_v: TY + 2L at most (uint16)
+// K7's compiled-in shapes.
+constexpr int kOiiThreads = 256;        // threads a block, both axes
+constexpr int kOiiWarps = kOiiThreads / 32;
+constexpr int kOiiRows = 4;             // axis 1: output rows a thread
+constexpr int kOiiCols = 2;             // axis 2: output columns a thread
+constexpr int kOiiFar = 1 << 30;        // past every row and column index
 
 // Asynchronous 16-byte copy global -> shared (cp.async.cg, L2 only).
 __device__ __forceinline__ void copy16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+// Asynchronous 4-byte copy global -> shared (cp.async.ca).
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src));
 }
 __device__ __forceinline__ void commit() {
@@ -150,45 +187,351 @@ __global__ void cross_arms_kernel(const float* __restrict__ img,
   }
 }
 
-template <int AXIS>
-__global__ void oii_pass_kernel(const float* __restrict__ vol,
-                                const int* __restrict__ arms_l,
-                                const int* __restrict__ arms_r,
-                                float* __restrict__ out, int D, int H, int W,
-                                int L, int d0, int row0, int h_glob) {
-  const long long HW = (long long)H * W;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= HW * D) return;
-  const int x = (int)(i % W);
-  const int y = (int)((i / W) % H);
-  const int d = (int)(i / HW);
-  const long long pl = (long long)y * W + x;
-  const long long pr = (long long)y * W + max(x - d0 - d, 0);
-  const int pm = AXIS == 2 ? 0 : 2;  // minus plane; the plus plane follows
-  const int m = max(arms_l[pm * HW + pl], arms_r[pm * HW + pr]);
-  const int p = min(arms_l[(pm + 1) * HW + pl], arms_r[(pm + 1) * HW + pr]);
-  float acc = 0.0f;
-  if (AXIS == 2) {
-    // Taps j with column x + j in 1 .. W-1.
-    const int lo = max(max(m, -L), 1 - x);
-    const int hi = min(min(p, L), W - 1 - x);
-    const float* src = vol + i;
-    for (int j = lo; j <= hi; ++j) {
-      acc = acc + src[j];
-    }
-  } else {
-    // Taps as volume rows r = y + j, ascending: rows of the volume whose
-    // frame row row0 + r lies in 1 .. h_glob-1.  (Written over r, not as
-    // max(-y, 1 - row0 - y) on j: nvcc 12.9 for sm_90a dropped that
-    // negation.)
-    const int r_lo = max(max(0, 1 - row0), y + max(m, -L));
-    const int r_hi = min(min(H - 1, h_glob - 1 - row0), y + min(p, L));
-    const float* col = vol + (i - (long long)y * W);
-    for (int r = r_lo; r <= r_hi; ++r) {
-      acc = acc + col[(long long)r * W];
+// K7's blocks (both axes): the chunk's right arms of the block's rows, read
+// at max(x - d0 - d, 0) for every x of the block and d of the chunk: columns
+// ca .. ca + aw - 1 (clipped to the frame), as (minus, plus) pairs
+// [ty][aw].  Warp w stages rows w, w + kOiiWarps, ...
+__device__ __forceinline__ void stage_right_arms(int2* arms_s,
+                                                 const int* minus_r,
+                                                 const int* plus_r, int H,
+                                                 int W, int yb, int ty, int ca,
+                                                 int aw) {
+  const int lane = threadIdx.x & 31;
+  for (int row = threadIdx.x >> 5; row < ty && yb + row < H;
+       row += kOiiWarps) {
+    const int q0 = (yb + row) * W;
+    for (int c = lane; c < aw && ca + c < W; c += 32) {
+      arms_s[row * aw + c] = make_int2(minus_r[q0 + ca + c], plus_r[q0 + ca + c]);
     }
   }
-  out[i] = acc / (float)(p - m);
+}
+
+// One output's window on its axis: the positions i + j, j in [m, p] ∩ [-L,
+// L], that lie in [first, last] (lo, n: the first position and the count),
+// and its divisor p - m (int32 arithmetic, wrapping as the plain version's).
+__device__ __forceinline__ void window(int i, int m, int p, int L, int first,
+                                       int last, int& lo, int& n, float& div) {
+  lo = max(i + min(max(m, -L), L + 1), first);
+  const int hi = min(i + max(min(p, L), -L - 1), last);
+  n = max(hi - lo + 1, 0);
+  div = (float)(int)((unsigned)p - (unsigned)m);
+}
+
+// Adds v to each of the N accumulators whose window [lo, lo + n) holds
+// position r.  A masked tap is skipped (a predicated add; the plain version
+// adds +0.0 there, which changes no sum here: each starts at +0.0 and adds
+// values >= +0.0).
+template <int N>
+__device__ __forceinline__ void add_masked(float (&acc)[N], const int (&lo)[N],
+                                           const int (&n)[N], int r, float v) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if ((unsigned)(r - lo[i]) < (unsigned)n[i]) acc[i] += v;
+  }
+}
+
+// add_masked for a position r that lies at or below every window's end
+// (before a shared core): only the start is tested.
+template <int N>
+__device__ __forceinline__ void add_from(float (&acc)[N], const int (&lo)[N],
+                                         int r, float v) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (r >= lo[i]) acc[i] += v;
+  }
+}
+
+// add_masked for a position r that lies at or above every window's start
+// (after a shared core): only the end is tested.
+template <int N>
+__device__ __forceinline__ void add_until(float (&acc)[N], const int (&lo)[N],
+                                          const int (&n)[N], int r, float v) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (r < lo[i] + n[i]) acc[i] += v;
+  }
+}
+
+// The union [a, b] of the N windows, and their intersection [c0, c1] where
+// every window holds it; an empty intersection (or an empty window) is
+// returned as [b + 1, b], so that the walk a .. c0 - 1, c0 .. c1, c1 + 1 ..
+// b covers [a, b] once.  No window: a > b.
+template <int N>
+__device__ __forceinline__ void union_and_core(const int (&lo)[N],
+                                               const int (&n)[N], int& a,
+                                               int& b, int& c0, int& c1) {
+  a = kOiiFar;
+  b = -kOiiFar;
+  c0 = -kOiiFar;
+  c1 = kOiiFar;
+  bool all = true;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (n[i] > 0) {
+      a = min(a, lo[i]);
+      b = max(b, lo[i] + n[i] - 1);
+      c0 = max(c0, lo[i]);
+      c1 = min(c1, lo[i] + n[i] - 1);
+    } else {
+      all = false;
+    }
+  }
+  if (!all || c0 > c1) {
+    c0 = b + 1;
+    c1 = b;
+  }
+}
+
+// K7, axis 1.  Block (x0 = 32 * blockIdx.x, rows yb = TY * blockIdx.y ..
+// yb + TY - 1 with TY = kOiiWarps * R and R = kOiiRows, planes d_lo = dc * blockIdx.z ..
+// d_lo + nd - 1); lane = column x0 + lane, warp w = the rows yb + w * R + i,
+// i < R.  Shared: two stages of one plane's volume rows rb + k, k in [0,
+// TY + 2L) with rb = yb - L, of the block's 32 columns ([2][TY + 2L][32]
+// f32; only rows whose frame row lies in 1 .. h_glob - 1 are copied, the
+// others are never read), then the right arms [TY][32 + dc - 1] int2.
+// vec: W % 4 == 0 and vol on a 16-byte boundary (rows staged in 16-byte
+// cp.async; else 4-byte).  Per plane each thread walks the union of its R
+// windows once, ascending, reading each staged row once and adding it to
+// the outputs whose window holds it (unconditionally over the rows that all
+// hold).  Lane = column: whatever rows the lanes read, no bank conflict.
+__global__ void __launch_bounds__(kOiiThreads)
+    oii_v_kernel(const float* __restrict__ vol, const int* __restrict__ arms_l,
+                 const int* __restrict__ arms_r, float* __restrict__ out,
+                 int D, int H, int W, int L, int d0, int row0, int h_glob,
+                 int dc, int vec) {
+  constexpr int R = kOiiRows, TY = kOiiWarps * R;
+  extern __shared__ uint4 oii_smem[];
+  const int Rs = TY + 2 * L;
+  float* const stages = reinterpret_cast<float*>(oii_smem);
+  int2* const arms_s = reinterpret_cast<int2*>(stages + 2 * 32 * Rs);
+  const long long HW = (long long)H * W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x0 = 32 * blockIdx.x, yb = TY * blockIdx.y, x = x0 + lane;
+  const int rb = yb - L;
+  const int d_lo = dc * blockIdx.z, nd = min(dc, D - d_lo);
+  const int aw = 32 + dc - 1, ca = max(x0 - d0 - d_lo - dc + 1, 0);
+  // Volume rows whose frame row row0 + r lies in 1 .. h_glob - 1 (written
+  // over r, with no negated row: nvcc 12.9 for sm_90a once dropped the
+  // negation in max(-y, 1 - row0 - y)).
+  const int r_first = max(0, 1 - row0), r_last = min(H - 1, h_glob - 1 - row0);
+
+  auto fill = [&](int d, float* buf) {
+    const float* src = vol + (long long)d * HW;
+    if (vec) {
+      for (int k = threadIdx.x; k < 8 * Rs; k += kOiiThreads) {
+        const int r = rb + (k >> 3), cx = x0 + 4 * (k & 7);
+        if (r >= r_first && r <= r_last && cx < W) {
+          copy16(buf + 4 * k, src + r * W + cx);
+        }
+      }
+    } else {
+      for (int k = threadIdx.x; k < 32 * Rs; k += kOiiThreads) {
+        const int r = rb + (k >> 5), cx = x0 + (k & 31);
+        if (r >= r_first && r <= r_last && cx < W) {
+          copy4(buf + k, src + r * W + cx);
+        }
+      }
+    }
+  };
+
+  fill(d_lo, stages);
+  commit();
+  // The arms and the left arms load while plane d_lo is in flight.
+  stage_right_arms(arms_s, arms_r + 2 * HW, arms_r + 3 * HW, H, W, yb, TY, ca,
+                   aw);
+  int ml[R], pl[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int y = yb + warp * R + i;
+    ml[i] = pl[i] = 0;
+    if (x < W && y < H) {
+      ml[i] = arms_l[2 * HW + y * W + x];
+      pl[i] = arms_l[3 * HW + y * W + x];
+    }
+  }
+  for (int k = 0; k < nd; ++k) {
+    if (k + 1 < nd) fill(d_lo + k + 1, stages + 32 * Rs * ((k + 1) & 1));
+    commit();
+    wait_all_but_one();
+    __syncthreads();  // plane k (and, at k = 0, the arms) in place
+    const int d = d_lo + k;
+    const float* col = stages + 32 * Rs * (k & 1) + lane;  // col[32 * (r - rb)]
+    int lo[R], n[R];
+    float div[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int y = yb + warp * R + i;
+      lo[i] = n[i] = 0;
+      div[i] = 1.0f;
+      if (x < W && y < H) {
+        const int2 ar = arms_s[(warp * R + i) * aw + max(x - d0 - d, 0) - ca];
+        window(y, max(ml[i], ar.x), min(pl[i], ar.y), L, r_first, r_last,
+               lo[i], n[i], div[i]);
+      }
+    }
+    int a, b, c0, c1;
+    union_and_core(lo, n, a, b, c0, c1);
+    float acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+    for (int r = a; r < c0; ++r) add_masked(acc, lo, n, r, col[32 * (r - rb)]);
+    for (int r = c0; r <= c1; ++r) {
+      const float v = col[32 * (r - rb)];
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[i] += v;
+    }
+    for (int r = c1 + 1; r <= b; ++r) {
+      add_masked(acc, lo, n, r, col[32 * (r - rb)]);
+    }
+    float* o = out + (long long)d * HW;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int y = yb + warp * R + i;
+      if (x < W && y < H) o[y * W + x] = acc[i] / div[i];
+    }
+    __syncthreads();  // stage k & 1 is refilled at step k + 1
+  }
+}
+
+// K7, axis 2.  Block (x0 = TX * blockIdx.x with TX = 32 * C and C =
+// kOiiCols, rows yb = kOiiWarps * blockIdx.y .., planes as in axis 1); warp
+// w = row yb + w, lane = the C columns x0 + C * lane + c.  Shared: two stages of one
+// plane's row segments, columns sb + k, k in [0, TX + 2 LA) with LA = L
+// rounded up to a multiple of 4 and sb = x0 - LA ([2][kOiiWarps][TX + 2 LA]
+// f32; columns outside 0 .. W - 1 are not copied and never read), then the
+// right arms [kOiiWarps][TX + dc - 1] int2.  vec: bit 0 = W % 4 == 0 and vol
+// on a 16-byte boundary (16-byte cp.async, else 4-byte), bit 1 = W % C == 0
+// and out on a 16-byte boundary (C-wide stores).  Per plane each thread
+// walks the union of its C windows once, ascending, C columns a shared load
+// (unconditionally over the groups of C columns that all its windows hold;
+// before them it tests each window's start only, after them its end).
+__global__ void __launch_bounds__(kOiiThreads)
+    oii_h_kernel(const float* __restrict__ vol, const int* __restrict__ arms_l,
+                 const int* __restrict__ arms_r, float* __restrict__ out,
+                 int D, int H, int W, int L, int d0, int dc, int vec) {
+  constexpr int C = kOiiCols, TX = 32 * C;
+  static_assert(C == 2, "loads and stores below are float2");
+  extern __shared__ uint4 oii_smem[];
+  const int LA = (L + 3) & ~3, SW = TX + 2 * LA;
+  float* const stages = reinterpret_cast<float*>(oii_smem);
+  int2* const arms_s = reinterpret_cast<int2*>(stages + 2 * kOiiWarps * SW);
+  const long long HW = (long long)H * W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x0 = TX * blockIdx.x, y = kOiiWarps * blockIdx.y + warp;
+  const int xt = x0 + C * lane, sb = x0 - LA;
+  const int d_lo = dc * blockIdx.z, nd = min(dc, D - d_lo);
+  const int aw = TX + dc - 1, ca = max(x0 - d0 - d_lo - dc + 1, 0);
+
+  // Warp w copies its own row's segment.
+  auto fill = [&](int d, float* buf) {
+    if (y >= H) return;
+    const float* src = vol + (long long)d * HW + y * W;
+    float* dst = buf + warp * SW;
+    if (vec & 1) {
+      for (int q = lane; 4 * q < SW; q += 32) {
+        const int cx = sb + 4 * q;
+        if (cx >= 0 && cx < W) copy16(dst + 4 * q, src + cx);
+      }
+    } else {
+      for (int q = lane; q < SW; q += 32) {
+        const int cx = sb + q;
+        if (cx >= 0 && cx < W) copy4(dst + q, src + cx);
+      }
+    }
+  };
+
+  fill(d_lo, stages);
+  commit();
+  // The arms and the left arms load while plane d_lo is in flight.
+  stage_right_arms(arms_s, arms_r, arms_r + HW, H, W, kOiiWarps * blockIdx.y,
+                   kOiiWarps, ca, aw);
+  int ml[C], pl[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    ml[c] = pl[c] = 0;
+    if (xt + c < W && y < H) {
+      ml[c] = arms_l[y * W + xt + c];
+      pl[c] = arms_l[HW + y * W + xt + c];
+    }
+  }
+  for (int k = 0; k < nd; ++k) {
+    if (k + 1 < nd) fill(d_lo + k + 1, stages + kOiiWarps * SW * ((k + 1) & 1));
+    commit();
+    wait_all_but_one();
+    __syncthreads();  // plane k (and, at k = 0, the arms) in place
+    const int d = d_lo + k;
+    const float* row = stages + kOiiWarps * SW * (k & 1) + warp * SW;
+    int lo[C], n[C];
+    float div[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      lo[c] = n[c] = 0;
+      div[c] = 1.0f;
+      if (xt + c < W && y < H) {
+        const int2 ar = arms_s[warp * aw + max(xt + c - d0 - d, 0) - ca];
+        window(xt + c, max(ml[c], ar.x), min(pl[c], ar.y), L, 1, W - 1, lo[c],
+               n[c], div[c]);
+      }
+    }
+    int a, b, c0, c1;
+    union_and_core(lo, n, a, b, c0, c1);
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+    if (a <= b) {
+      // Groups of C columns g * C .. g * C + C - 1 (a >= 1: no negative g);
+      // the core groups g0 .. g1 lie wholly inside every window.  Where
+      // there are any, the groups before them lie at or below every
+      // window's end (g0 * C - 1 <= c1 - C) and those after them at or
+      // above every start ((g1 + 1) * C > c0).
+      const int ga = a / C, gb = b / C;
+      const int g0 = (c0 + C - 1) / C, g1 = (c1 + 1) / C - 1;
+      auto at = [&](int g) {
+        return *reinterpret_cast<const float2*>(row + (g * C - sb));
+      };
+      if (c0 <= c1 && g0 <= g1) {
+        for (int g = ga; g < g0; ++g) {
+          const float2 v = at(g);
+          add_from(acc, lo, g * C, v.x);
+          add_from(acc, lo, g * C + 1, v.y);
+        }
+        for (int g = g0; g <= g1; ++g) {
+          const float2 v = at(g);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            acc[c] += v.x;
+            acc[c] += v.y;
+          }
+        }
+        for (int g = g1 + 1; g <= gb; ++g) {
+          const float2 v = at(g);
+          add_until(acc, lo, n, g * C, v.x);
+          add_until(acc, lo, n, g * C + 1, v.y);
+        }
+      } else {
+        for (int g = ga; g <= gb; ++g) {
+          const float2 v = at(g);
+          add_masked(acc, lo, n, g * C, v.x);
+          add_masked(acc, lo, n, g * C + 1, v.y);
+        }
+      }
+    }
+    if (y < H && xt < W) {
+      float* o = out + (long long)d * HW + y * W + xt;
+      float r[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) r[c] = acc[c] / div[c];
+      if (vec & 2) {
+        *reinterpret_cast<float2*>(o) = make_float2(r[0], r[1]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (xt + c < W) o[c] = r[c];
+        }
+      }
+    }
+    __syncthreads();  // stage k & 1 is refilled at step k + 1
+  }
 }
 
 // Block (x0 = kVoteHTx * blockIdx.x, row blockIdx.y, planes d_lo .. d_lo +
@@ -439,6 +782,18 @@ int launch_vote_v(const uint8_t* rc, const int* arms_l, int* mode, int D,
   return (int)cudaGetLastError();
 }
 
+// Launches one K7 kernel over a grid of blocks of kOiiThreads threads.
+template <typename Kernel, typename... Args>
+int launch_oii(Kernel kernel, dim3 grid, int shared, cudaStream_t s,
+               Args... args) {
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kOiiThreads, shared, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // img: (H, W, 3) f32, frame rows row0 .. row0 + H - 1 of an h_glob-row
@@ -457,24 +812,43 @@ extern "C" int cross_arms_f32(const float* img, int* arms, int H, int W,
 // vol, out: (D, H, W) f32, plane k = disparity d0 + k; arms_l, arms_r:
 // (4, H, W) int32; axis 2 = horizontal (h arms), 1 = vertical (v arms),
 // whose rows are frame rows row0 .. row0 + H - 1 of an h_glob-row frame.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for another axis.
+// The plan is kernels/cross_oii.py oii_tiles: dc planes per chunk in
+// `chunks` chunks, a plane's `stage` bytes, the chunk's right arms' `arm`
+// bytes, `shared` bytes a block.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for another axis or a plan that does not cover the
+// D planes or does not match the shared layout.
 extern "C" int oii_pass_f32(const float* vol, const int* arms_l,
                             const int* arms_r, float* out, int D, int H,
                             int W, int L, int d0, int axis, int row0,
-                            int h_glob, void* stream) {
-  const long long n = (long long)D * H * W;
-  cudaStream_t s = (cudaStream_t)stream;
+                            int h_glob, int dc, int chunks, int stage, int arm,
+                            int shared, void* stream) {
   if (axis != 1 && axis != 2) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    if (axis == 2) {
-      oii_pass_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(
-          vol, arms_l, arms_r, out, D, H, W, L, d0, row0, h_glob);
-    } else {
-      oii_pass_kernel<1><<<blocks_for(n), kThreads, 0, s>>>(
-          vol, arms_l, arms_r, out, D, H, W, L, d0, row0, h_glob);
-    }
+  if ((long long)D * H * W == 0) return (int)cudaGetLastError();
+  if (L < 0 || L > 65535 || dc < 1 || chunks < 1 || chunks > 65535 ||
+      (long long)H * W > 0x7fffffffLL || (long long)dc * (chunks - 1) >= D ||
+      (long long)dc * chunks < D) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const int tx = axis == 1 ? 32 : 32 * kOiiCols;
+  const int ty = axis == 1 ? kOiiWarps * kOiiRows : kOiiWarps;
+  const long long want_stage =
+      axis == 1 ? 4LL * 32 * (ty + 2 * L)
+                : 4LL * ty * (tx + 2 * ((L + 3) & ~3));
+  const long long want_arm = 8LL * ty * (tx + dc - 1);
+  if (stage != want_stage || arm != want_arm ||
+      shared != 2LL * stage + arm || shared > kSharedLimit) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid((W + tx - 1) / tx, (H + ty - 1) / ty, chunks);
+  const int vec_in = W % 4 == 0 && ((uintptr_t)vol & 15) == 0;
+  const int vec_out = W % kOiiCols == 0 && ((uintptr_t)out & 15) == 0;
+  if (axis == 1) {
+    return launch_oii(oii_v_kernel, grid, shared, s, vol, arms_l, arms_r, out,
+                      D, H, W, L, d0, row0, h_glob, dc, vec_in);
+  }
+  return launch_oii(oii_h_kernel, grid, shared, s, vol, arms_l, arms_r, out,
+                    D, H, W, L, d0, dc, vec_in | 2 * vec_out);
 }
 
 // idx: (H, W) int32 bins; arms_l: (4, H, W) int32; rc: (D, H, W) uint8.

@@ -8,9 +8,16 @@ ops/cross.py `cross_arms`, ops/oii.py `oii_pass_plain` and ops/vote.py
 `vote_counts_plain` / `vote_mode_plain`: a CPU tensor takes them, a CUDA
 tensor launches the kernel or raises.
 
-K8's tile plans are `vote_h_tiles` and `vote_v_tiles`; the wrappers pass
-them to the CUDA entry points, and tests/test_torch_vote_tiles.py walks
-both in numpy as the CUDA code indexes.
+K7's tile plan is `oii_tiles`: a block owns a tile of pixels (axis 1: 32
+columns x 32 rows, 4 rows a thread; axis 2: 8 rows x 64 columns, 2
+columns a thread) and a chunk of planes, stages the chunk's right arms
+once and each plane's volume tile with its halo of L rows or columns, and
+each thread walks the union of its outputs' windows once, adding every
+staged value it reads to each output whose window holds it.  K8's plans
+are `vote_h_tiles` and `vote_v_tiles`.  The wrappers pass the plans to the
+CUDA entry points, which refuse one off their compiled layout;
+tests/test_torch_oii_tiles.py and tests/test_torch_vote_tiles.py walk them
+in numpy as the CUDA code indexes.
 """
 
 from __future__ import annotations
@@ -41,6 +48,13 @@ VOTE_V_GROUPS = 4               # vote_v: plane groups (ranges of planes)
 VOTE_V_ROWS = 257               # vote_v: TY + 2L at most: a 16-bit column
                                 # prefix holds 255 * 257 = 65535
 GRID_YZ = 65_535                # the most blocks along grid y and z
+# K7's shapes, compiled into csrc/cross_oii.cu (kOiiThreads, kOiiRows,
+# kOiiCols), and the plan's chunking.
+OII_WARPS = 8                   # warps a block (256 threads), both axes
+OII_ROWS = 4                    # axis 1: output rows a thread
+OII_COLS = 2                    # axis 2: output columns a thread
+OII_DC = 32                     # planes a chunk at most (its staged arms)
+OII_BLOCKS = 1056               # blocks the plan aims at: 8 per SM of 132
 
 
 class VoteHPlan(NamedTuple):
@@ -61,6 +75,61 @@ class VoteVPlan(NamedTuple):
                        # then its results [2][ty][32] int32
     grid: tuple        # (blocks along x, blocks along y)
     shared_bytes: int  # p * stage_bytes + g * p * region
+
+
+class OiiPlan(NamedTuple):
+    axis: int          # 1 = vertical (v arms), 2 = horizontal (h arms)
+    tx: int            # a block's columns: 32 (axis 1), 32 * OII_COLS (axis 2)
+    ty: int            # a block's rows: OII_WARPS * OII_ROWS (axis 1),
+                       # OII_WARPS (axis 2)
+    halo: int          # staged positions past each side of the tile: L
+                       # (axis 1, rows), L rounded up to 4 (axis 2, columns)
+    dc: int            # planes a chunk
+    chunks: int        # chunks of planes along grid z
+    stage_bytes: int   # one plane's staged volume: [ty + 2L][32] f32 (axis
+                       # 1), [ty][tx + 2 * halo] f32 (axis 2)
+    arm_bytes: int     # the chunk's right arms [ty][tx + dc - 1] int2
+    grid: tuple        # (blocks along x, along y, chunks)
+    shared_bytes: int  # two stages, then the arms
+
+
+def oii_tiles(D: int, H: int, W: int, L: int, axis: int) -> OiiPlan:
+    """The plan of one K7 launch: a block owns a tile of ty x tx pixels
+    and a chunk of dc planes.  Chunks hold at most OII_DC planes (the
+    staged right arms widen with them) and are as many more as bring the
+    grid to OII_BLOCKS blocks, and equal; dc is then halved until the block
+    fits SHARED_LIMIT.  Raises ValueError where even one plane does not fit
+    (a long L), the grid is too tall, or a plane passes 2^31 - 1 pixels:
+    the kernel has no other route."""
+    if axis not in (1, 2):
+        raise ValueError(f"axis must be 1 (vertical) or 2 (horizontal), got {axis}")
+    if D < 1 or L < 0:
+        raise ValueError(f"no K7 plan for D={D}, L={L}")
+    if H * W > 2**31 - 1:
+        raise ValueError(f"no K7 plan for {H}x{W}: a plane passes 2^31 - 1 "
+                         f"pixels")
+    if axis == 1:
+        tx, ty, halo = 32, OII_WARPS * OII_ROWS, L
+        stage = 4 * 32 * (ty + 2 * L)
+    else:
+        tx, ty, halo = 32 * OII_COLS, OII_WARPS, -(-L // 4) * 4
+        stage = 4 * ty * (tx + 2 * halo)
+    gx, gy = -(-W // tx), -(-H // ty)
+    chunks = max(-(-D // OII_DC), min(D, -(-OII_BLOCKS // max(1, gx * gy))))
+    dc = -(-D // chunks)
+    arms = lambda dc: 8 * ty * (tx + dc - 1)
+    while 2 * stage + arms(dc) > SHARED_LIMIT and dc > 1:
+        dc = -(-dc // 2)
+    if 2 * stage + arms(dc) > SHARED_LIMIT:
+        raise ValueError(f"no K7 plan for L={L} on axis {axis}: one plane "
+                         f"needs {2 * stage + arms(1)} shared bytes of "
+                         f"{SHARED_LIMIT}")
+    chunks = -(-D // dc)
+    if gy > GRID_YZ or chunks > GRID_YZ:
+        raise ValueError(f"no K7 plan for {H} rows in {chunks} chunks: the "
+                         f"grid holds {GRID_YZ} along y and z")
+    return OiiPlan(axis, tx, ty, halo, dc, chunks, stage, arms(dc),
+                   (gx, gy, chunks), 2 * stage + arms(dc))
 
 
 def vote_h_tiles(D: int, H: int, W: int, L: int) -> VoteHPlan:
@@ -123,7 +192,7 @@ def _lib():
     lib = library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cross_arms_f32.argtypes = [p, p, i, i, i, i, f, i, i, p]
-    lib.oii_pass_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.oii_pass_f32.argtypes = [p, p, p, p] + [i] * 13 + [p]
     lib.vote_h_u8.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.vote_v_i32.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     for fn in (lib.cross_arms_f32, lib.oii_pass_f32, lib.vote_h_u8,
@@ -201,11 +270,14 @@ def oii_pass(vol: torch.Tensor, arms_l: torch.Tensor, arms_r: torch.Tensor,
         return oii_pass_plain(vol, arms_l, arms_r, arm_len, axis, d0, row0,
                               h_glob)
     require_cuda(vol, arms_l, arms_r)
+    plan = oii_tiles(D, H, W, arm_len, axis)
     out = torch.empty_like(vol)
     with torch.cuda.device(vol.device):
         rc = _lib().oii_pass_f32(vol.data_ptr(), arms_l.data_ptr(),
                                  arms_r.data_ptr(), out.data_ptr(), D, H, W,
-                                 arm_len, d0, axis, row0, h_glob,
+                                 arm_len, d0, axis, row0, h_glob, plan.dc,
+                                 plan.chunks, plan.stage_bytes,
+                                 plan.arm_bytes, plan.shared_bytes,
                                  _stream(vol))
     raise_on_error(rc, "oii_pass")
     LAUNCHES["oii_pass_h" if axis == 2 else "oii_pass_v"] += 1

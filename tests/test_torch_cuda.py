@@ -31,8 +31,9 @@ from stereo_matchin_tpu_torch.models import asw, cross_based, tiled
 from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
                                                    _two_min_plain)
 
-from .torch_support import (VOTE_EDGES, cuda_device, k4_queued, max_ulp, n,
-                            outlier_d1, unorm8_pair, vote_inputs)
+from .torch_support import (OII_EDGES, VOTE_EDGES, cuda_device, k4_queued,
+                            max_ulp, n, oii_inputs, outlier_d1, unorm8_pair,
+                            vote_inputs)
 
 pytestmark = pytest.mark.cuda
 EPS, BIG = 1e-5, 1e5
@@ -267,6 +268,69 @@ def test_oii_pass_kernel_bit_equal_to_plain(H, W, D, L):
     assert max_ulp(out, tops.oii_pass_plain(temp, al, ar, L, 1, d0)) == 0
 
 
+def _off16(x):
+    """A copy of x whose first element lies 4 bytes past a 16-byte boundary."""
+    off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    off = off.view(x.shape).copy_(x)
+    assert off.data_ptr() % 16 == 4
+    return off
+
+
+@pytest.mark.parametrize("case", list(OII_EDGES))
+def test_oii_pass_kernel_bit_equal_at_plan_edges(case, monkeypatch):
+    """K7 at its plans' edge shapes (torch_support.OII_EDGES), both axes
+    (the vertical one anchored by the case's row0/h_glob), on the volume as
+    made and on a copy one float off a 16-byte boundary (4-byte copies);
+    windows of one tap, inverted and, in `full_windows`, of 2L + 1."""
+    dev = cuda_device()
+    D, H, W, L, d0, row0, h_glob, full = OII_EDGES[case]
+    if case == "D45_chunks":
+        monkeypatch.setattr(kc, "OII_BLOCKS", 1)
+    vol, al, ar = (torch.from_numpy(a).to(dev) for a in oii_inputs(
+        np.random.default_rng(D * 31 + H * W + L), D, H, W, L, full))
+    for axis, anchor in ((1, (row0, h_glob)), (2, (0, None))):
+        key = "oii_pass_v" if axis == 1 else "oii_pass_h"
+        want = tops.oii_pass_plain(vol, al, ar, L, axis, d0, *anchor)
+        for v in (vol, _off16(vol)):
+            got = _launched(key, oii_pass, v, al, ar, L, axis, d0, *anchor)
+            assert max_ulp(got, want) == 0
+
+
+def test_oii_library_refuses_a_plan_off_its_layout():
+    """The entry point takes the wrapper's plan (kernels/cross_oii.py
+    oii_tiles) and refuses one that does not cover the planes or match its
+    shared layout, launching nothing."""
+    dev = cuda_device()
+    D, H, W, L = 5, 8, 32, 4
+    vol = torch.zeros((D, H, W), device=dev)
+    out = torch.zeros((D, H, W), device=dev)
+    al = torch.zeros((4, H, W), dtype=torch.int32, device=dev)
+    s = torch.cuda.current_stream(dev).cuda_stream
+    lib, invalid = kc._lib(), 1                 # cudaErrorInvalidValue
+    for axis in (1, 2):
+        plan = kc.oii_tiles(D, H, W, L, axis)
+
+        def call(**kw):
+            f = plan._replace(**kw)
+            return lib.oii_pass_f32(vol.data_ptr(), al.data_ptr(),
+                                    al.data_ptr(), out.data_ptr(), D, H, W, L,
+                                    0, axis, 0, H, f.dc, f.chunks,
+                                    f.stage_bytes, f.arm_bytes,
+                                    f.shared_bytes, s)
+
+        assert call(shared_bytes=plan.shared_bytes + 16) == invalid
+        assert call(stage_bytes=plan.stage_bytes - 16,
+                    shared_bytes=plan.shared_bytes - 32) == invalid
+        assert call(chunks=plan.chunks + 1) == invalid
+        assert call(dc=plan.dc + 1, arm_bytes=plan.arm_bytes + 8 * plan.ty,
+                    shared_bytes=plan.shared_bytes + 8 * plan.ty) == invalid
+        other = kc.oii_tiles(D, H, W, L, 3 - axis)  # the other axis's tile
+        assert call(**{f: getattr(other, f) for f in (
+            "dc", "chunks", "stage_bytes", "arm_bytes", "shared_bytes")}) == invalid
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+
+
 @pytest.mark.parametrize("H,W,D,L", CROSS_SHAPES + [(288, 384, 301, 25)]
                          + list(VOTE_EDGES.values()))
 def test_vote_kernels_equal_plain(H, W, D, L):
@@ -347,9 +411,10 @@ def test_cross_slice_through_kernels_equals_plain_ops_and_counts_launches():
 
 
 
-# (row0, rows) windows of a 375-row frame: inside it, and 9 rows past its
-# bottom (edge-replicated rows).
-ANCHORED = [(100, 140), (250, 134)]
+# (row0, rows) windows of a 375-row frame: inside it, 9 rows past its
+# bottom (edge-replicated rows), and a 2L-row strip (L = 25) as the cross
+# wavefront carries.
+ANCHORED = [(100, 140), (250, 134), (300, 50)]
 
 
 @pytest.mark.parametrize("row0,rows", ANCHORED)

@@ -126,3 +126,53 @@ def unorm8_pair(rng, H: int, W: int):
     left = (rng.integers(0, 256, (H, W, 3)) / np.float32(255.0)).astype(
         np.float32)
     return left, np.ascontiguousarray(np.roll(left, -2, axis=1))
+
+
+# Edge shapes of K7's plans (kernels/cross_oii.py oii_tiles), name ->
+# (D, H, W, L, d0, row0, h_glob, full): W off both axes' tiles; W = 450,
+# which no 16-byte copy serves; H under a row tile of either axis; a 2L-row
+# strip anchored inside a 375-row frame, as the cross wavefront carries;
+# D = 45, off the plane chunk where a test forces chunks of 23; d0 = 5;
+# full windows (2L + 1 taps, both arms past L; every case also has windows
+# of one tap at its borders); L = 1, 3 and 25; the
+# vertical pass anchored at row0 > 0 with rows past h_glob.  The vertical
+# pass takes (row0, h_glob), the horizontal one the whole frame.
+OII_EDGES = {
+    "W_off_tiles": (7, 37, 70, 4, 0, 0, None, False),
+    "W450": (5, 20, 450, 6, 0, 0, None, False),
+    "H_under_row_tile": (9, 5, 64, 3, 0, 0, None, False),
+    "strip_2L_anchored": (6, 50, 96, 25, 0, 300, 375, False),
+    "D45_chunks": (45, 9, 40, 2, 0, 0, None, False),
+    "d0_5": (9, 30, 100, 4, 5, 0, None, False),
+    "full_windows": (4, 60, 160, 25, 0, 0, None, True),
+    "L1": (6, 19, 50, 1, 0, 0, None, False),
+    "L3": (5, 40, 136, 3, 0, 0, None, False),
+    "L25": (4, 70, 200, 25, 3, 0, None, False),
+    "anchored_past_h_glob": (7, 40, 64, 5, 0, 350, 375, False),
+}
+
+
+def oii_inputs(rng, D: int, H: int, W: int, L: int, full: bool = False):
+    """K7 inputs (vol (D, H, W) f32 >= +0.0 with a tenth of it zero, arms_l
+    and arms_r (4, H, W) int32, numpy): minus arms in [-(L + 3), -1] and
+    plus arms in [1, L + 3], a tenth of them (-1, 1) (three taps, one at
+    column 0 or frame row 0, where the window starts at 1), a twentieth
+    inverted (3, -2: no tap); with `full`, every arm past L (2L + 1 taps).
+    Combined arms then never meet: no divisor is 0."""
+    vol = (rng.random((D, H, W)) * 2).astype(np.float32)
+    vol[rng.random((D, H, W)) < 0.1] = 0.0
+
+    def arms():
+        if full:
+            return np.stack([-rng.integers(L + 1, L + 3, (H, W)),
+                             rng.integers(L + 1, L + 3, (H, W))] * 2)
+        a = np.stack([-rng.integers(1, L + 4, (H, W)),
+                      rng.integers(1, L + 4, (H, W))] * 2)
+        for k in (0, 2):
+            short = rng.random((H, W)) < 0.1
+            a[k][short], a[k + 1][short] = -1, 1
+            inv = rng.random((H, W)) < 0.05
+            a[k][inv], a[k + 1][inv] = 3, -2
+        return a
+
+    return vol, arms().astype(np.int32), arms().astype(np.int32)
