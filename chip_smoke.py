@@ -7,7 +7,7 @@ sm_90a), nvcc and PyTorch built for CUDA:
     python3 chip_smoke.py
 
 It builds the CUDA kernels K1-K8 from `stereo_matchin_tpu_torch/csrc`,
-holds each against its plain PyTorch version on the card (K1/K2, K7 and K8
+holds each against its plain PyTorch version on the card (K1/K2 and K5-K8
 also at the edge shapes of their tile plans), drives the ASW
 and the cross-based pipelines at REFERENCE_CONFIG on the committed
 fixture pair through the kernels and through the plain ops, checks the
@@ -17,8 +17,8 @@ on PNG files.  Then the band drivers: the windowed K2 and the row-anchored
 K5 and K7-v against their plain versions, the ASW band drivers with
 disparity chunks against the whole frame (kernels and plain ops), every
 kernel against its plain version at BASELINE config 3's shapes (2880x1988,
-280 disparities; K7 also on a colour ramp whose windows are nearly all 2L +
-1 taps long), both methods at config 3 whole, wavefront-banded and
+280 disparities; K5 and K7 also on a colour ramp whose arms and windows are
+nearly all of full length), both methods at config 3 whole, wavefront-banded and
 halo-banded, bit-equal, with times and peak device memory held against
 the band plan, and `run --bands 3`.  Before the last line it prints one
 JSON object with each kernel's launches on its path, largest error against
@@ -661,6 +661,95 @@ def check_oii_edges(stats, kernels):
     torch.cuda.synchronize()
 
 
+def off16(x):
+    """A copy of x whose first element lies 4 bytes past a 16-byte
+    boundary."""
+    import torch
+
+    off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return off.view(x.shape).copy_(x)
+
+
+def check_sad_edges(stats, kernels):
+    """K6 at the edge shapes of its plan (tests/torch_support.py SAD_EDGES,
+    the card tests' shapes) against its plain version (0 ulp), one launch
+    each asserted, with the plan's chunks and with the largest (SAD_DC
+    planes), also on a pair 4 bytes off a 16-byte boundary."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import sad_volume as ks
+    from tests.torch_support import SAD_EDGES, sad_inputs
+
+    blocks = ks.SAD_BLOCKS
+    for case, (H, W, D, d0, scale) in SAD_EDGES.items():
+        left, right = (torch.from_numpy(a).cuda() for a in sad_inputs(
+            np.random.default_rng(H * W + D), H, W))
+        want = ops.sad_cost_volume(left, right, D, scale, d0)
+        for chunking in (blocks, 1):
+            ks.SAD_BLOCKS = chunking
+            for where, (l, r) in (("", (left, right)),
+                                  (" pair off 16 bytes",
+                                   (off16(left), off16(right)))):
+                before = kernels.LAUNCHES["sad_volume"]
+                got = ks.sad_volume(l, r, D, scale, d0)
+                if kernels.LAUNCHES["sad_volume"] != before + 1:
+                    raise AssertionError("sad_volume: not one launch")
+                compare(f"sad_volume edge {case} dc "
+                        f"{ks.sad_tiles(D, H, W).dc}{where}", [got], [want],
+                        stats["sad_volume"])
+    ks.SAD_BLOCKS = blocks
+    torch.cuda.synchronize()
+
+
+def check_arms_edges(stats, kernels):
+    """K5 at the edge shapes of its plan (tests/torch_support.py ARMS_EDGES,
+    the card tests' shapes), the legacy quirk on and off, against its plain
+    version (equal integers), one launch each asserted, with the plan's v
+    tiles and with the tallest, also on an image 4 bytes off a 16-byte
+    boundary."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import cross_oii as kc
+    from tests.torch_support import ARMS_EDGES, arms_image
+
+    blocks = kc.ARMS_V_BLOCKS
+    for case, (H, W, L, row0, h_glob, kind) in ARMS_EDGES.items():
+        img = torch.from_numpy(arms_image(np.random.default_rng(H * W + L), H,
+                                          W, kind)).cuda()
+        for q in (True, False):
+            want = ops.cross_arms(img, L, 0.10, q, row0, h_glob)
+            for v_blocks in (blocks, 1):
+                kc.ARMS_V_BLOCKS = v_blocks
+                ty = kc.arms_tiles(H, W, L, 3 if q else 2).ty_v
+                for where, im in (("", img), (" image off 16 bytes",
+                                              off16(img))):
+                    before = kernels.LAUNCHES["cross_arms"]
+                    got = kc.cross_arms(im, L, 0.10, q, row0, h_glob)
+                    if kernels.LAUNCHES["cross_arms"] != before + 1:
+                        raise AssertionError("cross_arms: not one launch")
+                    compare(f"cross_arms edge {case} quirk {q} v rows "
+                            f"{ty}{where}", [got], [want], stats["cross_arms"])
+    kc.ARMS_V_BLOCKS = blocks
+    torch.cuda.synchronize()
+
+
+def arms_walk(al):
+    """(tests, warp_tests): the colour tests K5's walks make on arms al (an
+    arm of n made n - 1 passing tests and, unless the frame or L cut it,
+    one failing one: counted as n), and the same when each lane pays for
+    the longest arm of its warp (32 consecutive columns of one row, as both
+    tile kinds lay their lanes)."""
+    import torch
+
+    a = al.abs()
+    W = a.shape[-1]
+    pad = (-W) % 32
+    g = torch.nn.functional.pad(a, (0, pad)).view(4, a.shape[1], -1, 32)
+    return int(a.sum()), int(g.amax(-1).sum()) * 32
+
+
 def cross_work(ml, mr, al, ar, D, L):
     """{kernel: (bytes, operations)} of K5-K8 on one frame or band of D
     planes: each input read once, each output written once; a pass over
@@ -707,9 +796,14 @@ def time_cross_kernels(left, right, cfg, stats, smi):
     }
     for name, moved_ops in cross_work(ml, mr, al, ar, D, L).items():
         record_work(stats, name, *moved_ops)
+    tests, warp_tests = arms_walk(al)
     for name, (kern, plain) in cases.items():
         times, line = turns(kern, plain, 20, 5)
         stats[name].update(times)
+        if name == "cross_arms":
+            line += (f"; walk bound {8 * tests / FP32_OPS_PER_S * 1e3:.4f} ms,"
+                     f" each warp paying its longest arm "
+                     f"{8 * warp_tests / FP32_OPS_PER_S * 1e3:.4f} ms")
         print(f"  {name}: {line}  (D={D}, {left.shape[0]}x{left.shape[1]}, "
               f"L={L}; {smi})")
 
@@ -932,9 +1026,9 @@ def cross_kernels_config3(left, right, cfg, stats, smi):
     band: arms and the OII vertical pass anchored by row0/h_glob, rows
     past the frame bottom edge-replicated.  Each is timed there in turns
     with its plain version beside its bound (K7 with its mean window
-    length); K7 again on the same band of a colour ramp (ramp_pair), whose
-    windows are nearly all of full length; one `config3_cross` JSON
-    line."""
+    length, K5 with its walk bounds); K5 and K7 again on the same band of a
+    colour ramp (ramp_pair), whose arms and windows are nearly all of full
+    length; one `config3_cross` JSON line."""
     import torch
 
     from stereo_matchin_tpu_torch import ops
@@ -960,6 +1054,14 @@ def cross_kernels_config3(left, right, cfg, stats, smi):
         if name.startswith("oii_pass"):
             entry["mean_window"] = window_means(arms, L)[name == "oii_pass_v"]
             taps = f", mean window {entry['mean_window']:.2f} taps"
+        if name == "cross_arms":
+            tests, warp_tests = arms_walk(arms)
+            entry["walk_bound_ms"] = 8 * tests / FP32_OPS_PER_S * 1e3
+            entry["warp_walk_bound_ms"] = 8 * warp_tests / FP32_OPS_PER_S * 1e3
+            entry["mean_arm"] = tests / arms.numel()
+            taps = (f", mean arm {entry['mean_arm']:.2f}, walk bound "
+                    f"{entry['walk_bound_ms']:.4f} ms, each warp paying its "
+                    f"longest arm {entry['warp_walk_bound_ms']:.4f} ms")
         c3[key] = entry
         print(f"  {key}: {line}; bound {entry['bound_ms']:.4f} ms "
               f"({entry['bound_by']}{taps})  ({label}; {smi})")
@@ -1000,11 +1102,16 @@ def cross_kernels_config3(left, right, cfg, stats, smi):
                 lambda: ops.vote_mode_plain(rc, al, L), 40)
     del rc, idx, al, ar, ml, mr
 
-    # K7 again at the band's shape on long windows: a smooth colour ramp
-    # (ramp_pair), nearly every arm at its full length L.
+    # K5 and K7 again at the band's shape on long arms and windows: a
+    # smooth colour ramp (ramp_pair), nearly every arm at its full length L.
     _, _, ml, mr, al, ar = band_inputs(*ramp_pair(H, left.shape[1]), cfg)
     work = cross_work(ml, mr, al, ar, D, L)
     label = f"{tag}, colour ramp moved 37 columns"
+    compare(f"cross_arms {label}", [kc.cross_arms(ml, L, tau, q, row0, H)],
+            [al], stats["cross_arms"])
+    timed_turns("cross_arms", lambda: kc.cross_arms(ml, L, tau, q, row0, H),
+                lambda: ops.cross_arms(ml, L, tau, q, row0, H), 40, work,
+                "cross_arms_long", label, al)
     cost = ops.sad_cost_volume(ml, mr, D, 1.0)
     temp = ops.oii_pass_plain(cost, al, ar, L, 2)
     compare(f"oii_pass_h {label}", [kc.oii_pass(cost, al, ar, L, 2)], [temp],
@@ -1410,6 +1517,8 @@ def main() -> int:
     check_cross_kernels(cross_pairs, cfg, stats)
     check_vote_edges(stats, kernels)
     check_oii_edges(stats, kernels)
+    check_sad_edges(stats, kernels)
+    check_arms_edges(stats, kernels)
     time_cross_kernels(left, right, cfg, stats, smi)
 
     phase("8. cross slice at REFERENCE_CONFIG: kernels against plain ops")

@@ -72,11 +72,39 @@
 //      fringe tests one bound.
 // R = 4 and C = 2 were faster on the H100 than R = 2, 8 and C = 4 (PERF.md,
 // K7).  What limits K7 there is issue, not bytes: the walk's predicated adds,
-// paid for the longest window of a warp's lanes (PERF.md, K7).  K5 runs
-// one thread per pixel.  The anchoring (row0, h_glob) serves the band
-// drivers: a band's window of rows gives every kept row the values of the
-// whole frame.
+// paid for the longest window of a warp's lanes (PERF.md, K7).  The
+// anchoring (row0, h_glob) of K5 and K7 serves the band drivers: a band's
+// window of rows gives every kept row the values of the whole frame.
 //
+// K5 is bound by its walk where arms are long (up to L - 1 colour tests a
+// pixel and direction, paid for the longest arm of a warp's lanes) and by
+// its staging where they are short.  Its plan is kernels/cross_oii.py
+// arms_tiles (tests/test_torch_arms_tiles.py walks it in numpy).  One
+// launch runs both axes, each over tiles whose halo is one dimensional: R =
+// first + L - 2 (the longest distance walked) past each side.
+//   v tiles (the grid's first blocks): 32 columns (lane = column) x TY
+//      rows (TY = ty_v of the plan, at most 32; warp w owns rows w, w + 8,
+//      ...); the rows y0 - R .. y0 + TY + R - 1, clamped to the image, are
+//      copied as they lie in the image, 3 interleaved floats a pixel
+//      (cp.async, 16-byte copies where W % 4 == 0 and the image is
+//      aligned, else 4-byte ones).  A step reads 3 floats; the lanes' reads
+//      lie 3 words apart, so no bank conflict.
+//   h tiles: kArmsHx = 256 columns of one row, a pixel a thread; the row
+//      segment x0 - R .. x0 + kArmsHx + R - 1 within the frame is staged as
+//      float4 (r, g, b, 0): a step is one 16-byte shared load, 32
+//      consecutive float4 a warp.
+// Each thread walks its pixel's minus and plus arms of its axis; a walk's
+// last distance is cut to the frame (columns 0 .. W - 1, frame rows 0 ..
+// h_glob - 1 from clamp(row0 + y)) before it starts, so a step tests the
+// colours only.  Indices are 32-bit (a plane holds < 2^31 pixels); one
+// division a block splits its index into tile coordinates.  On the H100
+// (PERF.md, K5): copies beat float4 staging for the v tiles and lost for
+// the h tiles; 256-column h tiles beat 2 rows of 128; taller v tiles, a
+// halo staged in two steps, fused minus/plus walks and unrolled walks
+// were slower.  Where every arm is 1 and the image passes L2 (a noise
+// frame at config 3), K5 is slower than the one-thread-a-pixel kernel it
+// replaced: the two axes' tiles read the image twice from HBM.
+
 // K8 is bound by its bytes: rc (D, H, W) uint8 is written once by the count
 // and read once by the mode; the plans are kernels/cross_oii.py
 // vote_h_tiles / vote_v_tiles, which the wrappers pass to the entry points
@@ -111,11 +139,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
-unsigned int blocks_for(long long n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
-}
+// K5's compiled-in shapes (kernels/cross_oii.py holds the same numbers and
+// the plan built on them).
+constexpr int kArmsThreads = 256;       // threads a block, both axes
+constexpr int kArmsWarps = kArmsThreads / 32;
+constexpr int kArmsHx = kArmsThreads;   // h tiles: columns of one row
+constexpr int kArmsVx = 32;             // v tiles: columns (a warp's lanes)
+// Blocks an SM must hold: caps the kernel at 32 registers a thread.  Left
+// to itself nvcc took 48, 5 blocks an SM, and K5 ran slower on the H100 on
+// every input timed (PERF.md, K5).
+constexpr int kArmsBlocksPerSm = 8;
 
 // K8's compiled-in shapes (kernels/cross_oii.py holds the same numbers and
 // the plans built on them).
@@ -148,6 +181,10 @@ __device__ __forceinline__ void copy4(void* dst, const void* src) {
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+// Wait until every committed group of this thread has landed.
+__device__ __forceinline__ void wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
 // Wait until at most one committed group of this thread is in flight.
 __device__ __forceinline__ void wait_all_but_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
@@ -157,34 +194,104 @@ __device__ __forceinline__ void group_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-__global__ void cross_arms_kernel(const float* __restrict__ img,
-                                  int* __restrict__ arms, int H, int W,
-                                  int arm_len, int first_dist, float tau,
-                                  int row0, int h_glob) {
-  const long long HW = (long long)H * W;
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= HW) return;
-  const int x = (int)(p % W);
-  const int y = (int)(p / W);
-  const int gy = min(max(row0 + y, 0), h_glob - 1);
-  const float c0 = img[p * 3], c1 = img[p * 3 + 1], c2 = img[p * 3 + 2];
-  const int dys[4] = {0, 0, -1, 1};
-  const int dxs[4] = {-1, 1, 0, 0};
-  for (int k = 0; k < 4; ++k) {
-    int arm = 1;
-    for (int dist = first_dist; dist < first_dist + arm_len - 1; ++dist) {
-      const int gny = gy + dys[k] * dist, nx = x + dxs[k] * dist;
-      if (gny < 0 || gny > h_glob - 1 || nx < 0 || nx > W - 1) break;
-      const int ny = min(max(y + dys[k] * dist, 0), H - 1);
-      const float* nb = img + ((long long)ny * W + nx) * 3;
-      if (!(fabsf(nb[0] - c0) < tau && fabsf(nb[1] - c1) < tau &&
-            fabsf(nb[2] - c2) < tau)) {
-        break;
-      }
-      ++arm;
+// K5: the arm of one direction from a pixel's staged colour c, its
+// neighbours `step` floats apart a distance (interleaved colours): 1 plus
+// the distances first .. lim passed before the first colour test fails.
+__device__ __forceinline__ int arm_walk(const float* c, int step, float tau,
+                                        int first, int lim) {
+  const float p0 = c[0], p1 = c[1], p2 = c[2];
+  int arm = 1;
+  for (int dist = first; dist <= lim; ++dist) {
+    const float* nb = c + dist * step;
+    if (!(fabsf(nb[0] - p0) < tau && fabsf(nb[1] - p1) < tau &&
+          fabsf(nb[2] - p2) < tau)) {
+      break;
     }
-    arms[k * HW + p] = (k % 2 == 0) ? -arm : arm;
+    ++arm;
   }
+  return arm;
+}
+
+// K5: the same with colours staged as float4, `step` float4 apart, p the
+// pixel's own.
+__device__ __forceinline__ int arm_walk(const float4* c, int step, float4 p,
+                                        float tau, int first, int lim) {
+  int arm = 1;
+  for (int dist = first; dist <= lim; ++dist) {
+    const float4 nb = c[dist * step];
+    if (!(fabsf(nb.x - p.x) < tau && fabsf(nb.y - p.y) < tau &&
+          fabsf(nb.z - p.z) < tau)) {
+      break;
+    }
+    ++arm;
+  }
+  return arm;
+}
+
+// K5: blocks 0 .. blocks_v - 1 are v tiles (gx_v of them a band of ty_v
+// rows), the rest h tiles (gx_h of them a row); see the note at the top.
+// vec: the image is 16-byte aligned and W % 4 == 0, so every staged v row
+// starts on a 16-byte boundary.
+__global__ void __launch_bounds__(kArmsThreads, kArmsBlocksPerSm)
+cross_arms_kernel(const float* __restrict__ img, int* __restrict__ arms,
+                  int H, int W, int L, int first, float tau, int row0,
+                  int h_glob, int R, int ty_v, int gx_v, int blocks_v,
+                  int gx_h, int vec) {
+  extern __shared__ float4 tile[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int last = first + L - 2;      // the last distance walked
+  const int HW = H * W;
+  const int b = blockIdx.x;
+  if (b < blocks_v) {
+    const int band = b / gx_v, x0 = (b - band * gx_v) * kArmsVx;
+    const int y0 = band * ty_v, rows = ty_v + 2 * R;
+    float* raw = reinterpret_cast<float*>(tile);   // [rows][3 * kArmsVx]
+    const int nf = 3 * min(kArmsVx, W - x0);       // floats of a tile row
+    for (int r = warp; r < rows; r += kArmsWarps) {
+      const int yy = min(max(y0 - R + r, 0), H - 1);
+      const float* src = img + 3 * (size_t)(yy * W + x0);
+      float* dst = raw + r * 3 * kArmsVx;
+      if (vec) {
+        if (4 * lane < nf) copy16(dst + 4 * lane, src + 4 * lane);
+      } else {
+        for (int k = lane; k < nf; k += 32) copy4(dst + k, src + k);
+      }
+    }
+    commit();
+    wait_all();
+    __syncthreads();
+    const int x = x0 + lane;
+    if (x >= W) return;
+    for (int i = warp; i < ty_v && y0 + i < H; i += kArmsWarps) {
+      const int y = y0 + i;
+      const int gy = min(max(row0 + y, 0), h_glob - 1);
+      const float* c = raw + (R + i) * 3 * kArmsVx + 3 * lane;
+      const int q = y * W + x;
+      arms[2 * (size_t)HW + q] =
+          -arm_walk(c, -3 * kArmsVx, tau, first, min(last, gy));
+      arms[3 * (size_t)HW + q] =
+          arm_walk(c, 3 * kArmsVx, tau, first, min(last, h_glob - 1 - gy));
+    }
+    return;
+  }
+  const int y = (b - blocks_v) / gx_h;
+  const int x0 = (b - blocks_v - y * gx_h) * kArmsHx;
+  const int sw = kArmsHx + 2 * R;                  // [sw] float4
+  for (int s = threadIdx.x; s < sw; s += kArmsThreads) {
+    const int xx = x0 - R + s;
+    if (xx >= 0 && xx < W) {
+      const float* px = img + 3 * (size_t)(y * W + xx);
+      tile[s] = make_float4(px[0], px[1], px[2], 0.f);
+    }
+  }
+  __syncthreads();
+  const int x = x0 + threadIdx.x;
+  if (x >= W) return;
+  const float4* c = tile + R + threadIdx.x;
+  const float4 p = *c;
+  const int q = y * W + x;
+  arms[q] = -arm_walk(c, -1, p, tau, first, min(last, x));
+  arms[(size_t)HW + q] = arm_walk(c, 1, p, tau, first, min(last, W - 1 - x));
 }
 
 // K7's blocks (both axes): the chunk's right arms of the block's rows, read
@@ -797,15 +904,39 @@ int launch_oii(Kernel kernel, dim3 grid, int shared, cudaStream_t s,
 }  // namespace
 
 // img: (H, W, 3) f32, frame rows row0 .. row0 + H - 1 of an h_glob-row
-// frame; arms: (4, H, W) int32.  Returns cudaGetLastError().
+// frame; arms: (4, H, W) int32.  The plan is kernels/cross_oii.py
+// arms_tiles: the halo R, rows ty_v of a v tile, blocks_v v tiles, blocks_h
+// h tiles, `shared` bytes a block.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan that does not match the frame or the
+// compiled layout.
 extern "C" int cross_arms_f32(const float* img, int* arms, int H, int W,
                               int arm_len, int first_dist, float tau,
-                              int row0, int h_glob, void* stream) {
-  const long long n = (long long)H * W;
-  if (n > 0) {
-    cross_arms_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        img, arms, H, W, arm_len, first_dist, tau, row0, h_glob);
+                              int row0, int h_glob, int R, int ty_v,
+                              int blocks_v, int blocks_h, int shared,
+                              void* stream) {
+  if ((long long)H * W == 0) return (int)cudaGetLastError();
+  const int gx_v = (W + kArmsVx - 1) / kArmsVx;
+  const int gx_h = (W + kArmsHx - 1) / kArmsHx;
+  const long long v_bytes = 12LL * kArmsVx * (ty_v + 2LL * R);
+  const long long h_bytes = 16LL * (kArmsHx + 2LL * R);
+  if (arm_len < 1 || first_dist < 1 || h_glob < 1 ||
+      (long long)H * W > 0x7fffffffLL ||
+      R != first_dist + (long long)arm_len - 2 || ty_v < kArmsWarps ||
+      ty_v % kArmsWarps != 0 ||
+      (long long)blocks_v != gx_v * (((long long)H + ty_v - 1) / ty_v) ||
+      (long long)blocks_h != (long long)gx_h * H ||
+      (long long)blocks_v + blocks_h > 0x7fffffffLL ||
+      shared != (v_bytes > h_bytes ? v_bytes : h_bytes) ||
+      shared > kSharedLimit) {
+    return (int)cudaErrorInvalidValue;
   }
+  cudaError_t err = cudaFuncSetAttribute(
+      cross_arms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return (int)err;
+  cross_arms_kernel<<<blocks_v + blocks_h, kArmsThreads, shared,
+                      (cudaStream_t)stream>>>(
+      img, arms, H, W, arm_len, first_dist, tau, row0, h_glob, R, ty_v, gx_v,
+      blocks_v, gx_h, W % 4 == 0 && ((uintptr_t)img & 15) == 0);
   return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,10 @@ ops/cross.py `cross_arms`, ops/oii.py `oii_pass_plain` and ops/vote.py
 `vote_counts_plain` / `vote_mode_plain`: a CPU tensor takes them, a CUDA
 tensor launches the kernel or raises.
 
-K7's tile plan is `oii_tiles`: a block owns a tile of pixels (axis 1: 32
+K5's tile plan is `arms_tiles`: one launch runs v tiles (32 columns x
+ty_v rows, with R = first + L - 2 rows past each side) and then h tiles
+(ARMS_HX columns of one row, with R columns past each side); each thread
+walks its pixel's two arms of its tile's axis in shared memory.  K7's tile plan is `oii_tiles`: a block owns a tile of pixels (axis 1: 32
 columns x 32 rows, 4 rows a thread; axis 2: 8 rows x 64 columns, 2
 columns a thread) and a chunk of planes, stages the chunk's right arms
 once and each plane's volume tile with its halo of L rows or columns, and
@@ -16,8 +19,8 @@ each thread walks the union of its outputs' windows once, adding every
 staged value it reads to each output whose window holds it.  K8's plans
 are `vote_h_tiles` and `vote_v_tiles`.  The wrappers pass the plans to the
 CUDA entry points, which refuse one off their compiled layout;
-tests/test_torch_oii_tiles.py and tests/test_torch_vote_tiles.py walk them
-in numpy as the CUDA code indexes.
+tests/test_torch_arms_tiles.py, tests/test_torch_oii_tiles.py and
+tests/test_torch_vote_tiles.py walk them in numpy as the CUDA code indexes.
 """
 
 from __future__ import annotations
@@ -55,6 +58,26 @@ OII_ROWS = 4                    # axis 1: output rows a thread
 OII_COLS = 2                    # axis 2: output columns a thread
 OII_DC = 32                     # planes a chunk at most (its staged arms)
 OII_BLOCKS = 1056               # blocks the plan aims at: 8 per SM of 132
+
+
+# K5's shapes, compiled into csrc/cross_oii.cu (kArmsThreads, kArmsHx,
+# kArmsHy, kArmsVx), and the plan's choice of v tile rows.
+ARMS_WARPS = 8                  # warps a block (256 threads), both axes
+ARMS_HX = 256                   # h tiles: columns of one row, a pixel a
+                                # thread
+ARMS_VX = 32                    # v tiles: columns (a warp's lanes)
+ARMS_V_ROWS = (32, 16, 8)       # v tiles: rows, a multiple of ARMS_WARPS
+ARMS_V_BLOCKS = 1056            # v tiles the plan aims at: 8 per SM of 132
+
+
+class ArmsPlan(NamedTuple):
+    halo: int          # R = first + L - 2: staged rows or columns past each
+                       # side of a tile, the longest distance walked
+    ty_v: int          # rows of a v tile (warp w walks rows w, w + 8, ...)
+    blocks_v: int      # v tiles, the grid's first blocks
+    blocks_h: int      # h tiles (ARMS_HX columns of one row), after them
+    shared_bytes: int  # the larger staging: v [ty_v + 2R][3 * 32] f32,
+                       # h [ARMS_HX + 2R] float4
 
 
 class VoteHPlan(NamedTuple):
@@ -132,6 +155,32 @@ def oii_tiles(D: int, H: int, W: int, L: int, axis: int) -> OiiPlan:
                    (gx, gy, chunks), 2 * stage + arms(dc))
 
 
+def arms_tiles(H: int, W: int, L: int, first: int) -> ArmsPlan:
+    """The plan of one K5 launch (first: the first distance walked, 3 with
+    the legacy quirk, else 2): v tiles of ty_v rows, the largest of
+    ARMS_V_ROWS that still gives ARMS_V_BLOCKS v tiles (else the smallest),
+    and h tiles of one row, all with a halo of R = first + L - 2.  Raises ValueError
+    where even ty_v = 8 does not fit SHARED_LIMIT (a long L), or a plane
+    passes 2^31 - 1 pixels: the kernel has no other route."""
+    if H < 1 or W < 1 or L < 1 or first < 1:
+        raise ValueError(f"no K5 plan for {H}x{W}, L={L}, first={first}")
+    if H * W > 2**31 - 1:
+        raise ValueError(f"no K5 plan for {H}x{W}: a plane passes 2^31 - 1 "
+                         f"pixels")
+    R = first + L - 2
+    size = lambda ty: max(12 * ARMS_VX * (ty + 2 * R), 16 * (ARMS_HX + 2 * R))
+    gx_v = -(-W // ARMS_VX)
+    fit = [ty for ty in ARMS_V_ROWS if size(ty) <= SHARED_LIMIT]
+    if not fit:
+        raise ValueError(f"no K5 plan for L={L}: a v tile of "
+                         f"{ARMS_V_ROWS[-1]} rows needs "
+                         f"{size(ARMS_V_ROWS[-1])} shared bytes of "
+                         f"{SHARED_LIMIT}")
+    ty = next((ty for ty in fit if gx_v * -(-H // ty) >= ARMS_V_BLOCKS),
+              fit[-1])
+    return ArmsPlan(R, ty, gx_v * -(-H // ty), -(-W // ARMS_HX) * H, size(ty))
+
+
 def vote_h_tiles(D: int, H: int, W: int, L: int) -> VoteHPlan:
     """The plan of one vote_h launch: a block owns VOTE_H_TX pixels of one
     row and the planes of one chunk; the chunks are as few as let a tile
@@ -191,7 +240,8 @@ def vote_v_tiles(D: int, H: int, W: int, L: int) -> VoteVPlan:
 def _lib():
     lib = library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cross_arms_f32.argtypes = [p, p, i, i, i, i, f, i, i, p]
+    lib.cross_arms_f32.argtypes = [p, p, i, i, i, i, f, i, i, i, i, i, i, i,
+                                   p]
     lib.oii_pass_f32.argtypes = [p, p, p, p] + [i] * 13 + [p]
     lib.vote_h_u8.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.vote_v_i32.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, p]
@@ -234,12 +284,15 @@ def cross_arms(img: torch.Tensor, arm_len: int = 25, tau: float = 0.10,
     if img.device.type == "cpu":
         return cross_arms_plain(img, arm_len, tau, legacy_quirk, row0, h_glob)
     require_cuda(img)
+    first = 3 if legacy_quirk else 2
+    plan = arms_tiles(H, W, arm_len, first)
     arms = torch.empty((4, H, W), dtype=torch.int32, device=img.device)
     with torch.cuda.device(img.device):
         rc = _lib().cross_arms_f32(img.data_ptr(), arms.data_ptr(), H, W,
-                                   arm_len, 3 if legacy_quirk else 2,
-                                   float(np.float32(tau)), row0, h_glob,
-                                   _stream(img))
+                                   arm_len, first, float(np.float32(tau)),
+                                   row0, h_glob, plan.halo, plan.ty_v,
+                                   plan.blocks_v, plan.blocks_h,
+                                   plan.shared_bytes, _stream(img))
     raise_on_error(rc, "cross_arms")
     LAUNCHES["cross_arms"] += 1
     return arms

@@ -31,8 +31,10 @@ from stereo_matchin_tpu_torch.models import asw, cross_based, tiled
 from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
                                                    _two_min_plain)
 
-from .torch_support import (OII_EDGES, VOTE_EDGES, cuda_device, k4_queued,
-                            max_ulp, n, oii_inputs, outlier_d1, unorm8_pair,
+from stereo_matchin_tpu_torch.kernels import sad_volume as ks
+from .torch_support import (ARMS_EDGES, OII_EDGES, SAD_EDGES, VOTE_EDGES,
+                            arms_image, cuda_device, k4_queued, max_ulp, n,
+                            oii_inputs, outlier_d1, sad_inputs, unorm8_pair,
                             vote_inputs)
 
 pytestmark = pytest.mark.cuda
@@ -255,6 +257,110 @@ def test_sad_volume_kernel_bit_equal_to_plain(H, W, D, L, scale, d0):
     assert max_ulp(got, tops.sad_cost_volume(ml, mr, D, scale, d0)) == 0
 
 
+def _off16(x):
+    """A copy of x whose first element lies 4 bytes past a 16-byte boundary."""
+    off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    off = off.view(x.shape).copy_(x)
+    assert off.data_ptr() % 16 == 4
+    return off
+
+
+@pytest.mark.parametrize("chunking", ["plan", "largest_chunks"])
+@pytest.mark.parametrize("case", list(SAD_EDGES))
+def test_sad_volume_kernel_bit_equal_to_plain_at_plan_edges(case, chunking,
+                                                            monkeypatch):
+    """K6 at its plan's edge shapes (torch_support.SAD_EDGES), with the
+    plan's chunks and with the largest (SAD_DC planes), on the pair as made
+    and on copies 4 bytes off a 16-byte boundary."""
+    dev = cuda_device()
+    H, W, D, d0, scale = SAD_EDGES[case]
+    if chunking == "largest_chunks":
+        monkeypatch.setattr(ks, "SAD_BLOCKS", 1)
+    left, right = (torch.from_numpy(a).to(dev) for a in sad_inputs(
+        np.random.default_rng(H * W + D), H, W))
+    want = tops.sad_cost_volume(left, right, D, scale, d0)
+    for l, r in ((left, right), (_off16(left), _off16(right))):
+        got = _launched("sad_volume", sad_volume, l, r, D, scale, d0)
+        assert max_ulp(got, want) == 0
+
+
+def test_sad_library_refuses_a_plan_off_its_layout():
+    """The entry point takes the wrapper's plan (kernels/sad_volume.py
+    sad_tiles) and refuses one that does not cover the planes or match its
+    compiled layout, launching nothing."""
+    dev = cuda_device()
+    D, H, W = 40, 4, 64
+    img = torch.zeros((H, W, 3), device=dev)
+    out = torch.zeros((D, H, W), device=dev)
+    plan = ks.sad_tiles(D, H, W)
+    s = torch.cuda.current_stream(dev).cuda_stream
+    lib, invalid = ks._lib(), 1                 # cudaErrorInvalidValue
+
+    def call(dc, chunks, shared):
+        return lib.sad_volume_f32(img.data_ptr(), img.data_ptr(),
+                                  out.data_ptr(), D, H, W, 0, 1.0, dc, chunks,
+                                  shared, s)
+
+    assert call(plan.dc, plan.chunks, plan.shared_bytes + 12) == invalid
+    assert call(plan.dc, plan.chunks + 1, plan.shared_bytes) == invalid
+    assert call(plan.dc - 1, plan.chunks, plan.shared_bytes - 12) == invalid
+    n = ks.SAD_TX + ks.SAD_DC                   # a chunk past SAD_DC planes
+    assert call(ks.SAD_DC + 1, 2, 12 * (n + (n >> 5) + 1)) == invalid
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("v_rows", ["plan", "tallest"])
+@pytest.mark.parametrize("quirk", [True, False])
+@pytest.mark.parametrize("case", list(ARMS_EDGES))
+def test_cross_arms_kernel_equals_plain_at_plan_edges(case, quirk, v_rows,
+                                                      monkeypatch):
+    """K5 at its plan's edge shapes (torch_support.ARMS_EDGES), with the
+    plan's v tiles and with the tallest (64 rows), on the image as made and
+    on a copy 4 bytes off a 16-byte boundary."""
+    dev = cuda_device()
+    H, W, L, row0, h_glob, kind = ARMS_EDGES[case]
+    if v_rows == "tallest":
+        monkeypatch.setattr(kc, "ARMS_V_BLOCKS", 1)
+    img = torch.from_numpy(arms_image(np.random.default_rng(H * W + L), H, W,
+                                      kind)).to(dev)
+    want = tops.cross_arms(img, L, 0.10, quirk, row0, h_glob)
+    for im in (img, _off16(img)):
+        got = _launched("cross_arms", cross_arms, im, L, 0.10, quirk, row0,
+                        h_glob)
+        assert torch.equal(got, want)
+
+
+def test_arms_library_refuses_a_plan_off_its_layout():
+    """The entry point takes the wrapper's plan (kernels/cross_oii.py
+    arms_tiles) and refuses one that does not match the frame or its
+    compiled layout, launching nothing."""
+    dev = cuda_device()
+    H, W, L, first = 40, 70, 5, 3
+    img = torch.zeros((H, W, 3), device=dev)
+    arms = torch.zeros((4, H, W), dtype=torch.int32, device=dev)
+    p = kc.arms_tiles(H, W, L, first)
+    s = torch.cuda.current_stream(dev).cuda_stream
+    lib, invalid = kc._lib(), 1                 # cudaErrorInvalidValue
+
+    def call(**kw):
+        f = p._replace(**kw)
+        return lib.cross_arms_f32(img.data_ptr(), arms.data_ptr(), H, W, L,
+                                  first, 0.1, 0, H, f.halo, f.ty_v,
+                                  f.blocks_v, f.blocks_h, f.shared_bytes, s)
+
+    assert call(halo=p.halo - 1) == invalid
+    assert call(shared_bytes=p.shared_bytes + 16) == invalid
+    assert call(blocks_v=p.blocks_v + 1) == invalid
+    assert call(blocks_h=p.blocks_h - 1) == invalid
+    assert call(ty_v=12) == invalid             # not a multiple of 8 rows
+    # A taller v tile with its own blocks but the shorter tile's bytes.
+    taller = 2 * p.ty_v
+    assert call(ty_v=taller, blocks_v=-(-W // 32) * -(-H // taller)) == invalid
+    torch.cuda.synchronize()
+    assert torch.equal(arms, torch.zeros_like(arms))
+
+
 @pytest.mark.parametrize("H,W,D,L", CROSS_SHAPES + [(288, 384, 57, 25)])
 def test_oii_pass_kernel_bit_equal_to_plain(H, W, D, L):
     dev = cuda_device()
@@ -266,14 +372,6 @@ def test_oii_pass_kernel_bit_equal_to_plain(H, W, D, L):
     assert max_ulp(temp, tops.oii_pass_plain(cost, al, ar, L, 2, d0)) == 0
     out = _launched("oii_pass_v", oii_pass, temp, al, ar, L, 1, d0)
     assert max_ulp(out, tops.oii_pass_plain(temp, al, ar, L, 1, d0)) == 0
-
-
-def _off16(x):
-    """A copy of x whose first element lies 4 bytes past a 16-byte boundary."""
-    off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
-    off = off.view(x.shape).copy_(x)
-    assert off.data_ptr() % 16 == 4
-    return off
 
 
 @pytest.mark.parametrize("case", list(OII_EDGES))

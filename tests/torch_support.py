@@ -176,3 +176,75 @@ def oii_inputs(rng, D: int, H: int, W: int, L: int, full: bool = False):
         return a
 
     return vol, arms().astype(np.int32), arms().astype(np.int32)
+
+
+# Edge shapes of K6's plan (kernels/sad_volume.py sad_tiles), name -> (H, W,
+# D, d0, scale): W under 4; W off 4 (4-byte stores); W under one tile;
+# d0 + D > W with d0 >= W, so every read clamps to column 0; one plane; D
+# off the plane chunk where a test forces the largest chunks (23 + 22); one
+# row, two tiles, the second ragged; three tiles with W off 4; the main
+# path's width and depth at config 3.  Scale 1.0 (the cross path) and 255.0.
+SAD_EDGES = {
+    "W_under_4": (5, 3, 4, 0, 1.0),
+    "W_off_4": (7, 37, 9, 0, 255.0),
+    "W_under_tile": (6, 100, 7, 2, 1.0),
+    "every_read_clamps": (4, 20, 9, 30, 1.0),
+    "D1": (9, 64, 1, 0, 255.0),
+    "D45_off_chunk": (3, 40, 45, 0, 1.0),
+    "H1_ragged_tile": (1, 600, 13, 3, 1.0),
+    "tiles_W_off_4": (2, 1030, 40, 5, 255.0),
+    "config3_width": (2, 2880, 280, 0, 1.0),
+}
+
+
+def sad_inputs(rng, H: int, W: int):
+    """A K6 pair (H, W, 3) f32 in [0, 1] on the UNORM8 grid, with a fifth of
+    the values off it (any f32: the scale's rounding shows)."""
+    left, right = (rng.integers(0, 256, (2, H, W, 3)) / np.float32(255.0)).astype(
+        np.float32)
+    for img in (left, right):
+        off = rng.random((H, W, 3)) < 0.2
+        img[off] = rng.random(int(off.sum()), dtype=np.float32)
+    return left, right
+
+
+# Edge shapes of K5's plan (kernels/cross_oii.py arms_tiles), name -> (H, W,
+# L, row0, h_glob, kind): H under L; W under L; a flat image (every arm
+# reaches L where the frame allows, and walks the whole halo); a noise image
+# (every arm 1); rows anchored at row0 > 0 with rows past h_glob, as the
+# cross wavefront's last band has; a 2L-row strip anchored inside a 375-row
+# frame; L = 1 (no step); ragged tiles of both axes with H odd; the main
+# path's width.  Each runs with the legacy quirk on and off.
+ARMS_EDGES = {
+    "H_under_L": (10, 80, 25, 0, None, "scene"),
+    "W_under_L": (40, 12, 25, 0, None, "scene"),
+    "flat": (70, 90, 25, 0, None, "flat"),
+    "noise": (30, 40, 5, 0, None, "noise"),
+    "anchored_past_h_glob": (40, 64, 5, 350, 375, "scene"),
+    "strip_2L_anchored": (50, 96, 25, 300, 375, "scene"),
+    "L1": (9, 50, 1, 0, None, "scene"),
+    "ragged_tiles": (33, 300, 6, 0, None, "scene"),
+    "main_width": (20, 384, 25, 0, None, "scene"),
+}
+
+
+def arms_image(rng, H: int, W: int, kind: str) -> np.ndarray:
+    """A K5 input (H, W, 3) f32.  "scene": runs of random length up to 2L
+    along both axes, each of one of 16 random colours (arms of every length,
+    some colours within tau of each other); "flat": one colour; "noise":
+    channel 0 steps 0.15 a pixel along x + y (mod 4), so no test at a
+    distance of 2 or 3 passes and every arm is 1, the other channels
+    random."""
+    if kind == "flat":
+        return np.full((H, W, 3), 0.4, np.float32)
+    if kind == "noise":
+        img = rng.random((H, W, 3), dtype=np.float32)
+        img[..., 0] = 0.15 * ((np.arange(H)[:, None] + np.arange(W)) % 4)
+        return img
+    palette = rng.random((16, 3), dtype=np.float32)
+    seg_y = np.cumsum(rng.random(H) < 0.08)
+    seg_x = np.cumsum(rng.random(W) < 0.06)
+    img = palette[(seg_x[None, :] + 7 * seg_y[:, None]) % 16]
+    spots = rng.random((H, W)) < 0.03
+    img[spots] = rng.random((int(spots.sum()), 3), dtype=np.float32)
+    return np.ascontiguousarray(img, dtype=np.float32)
