@@ -20,7 +20,13 @@ kernel against its plain version at BASELINE config 3's shapes (2880x1988,
 280 disparities; K5 and K7 also on a colour ramp whose arms and windows are
 nearly all of full length), both methods at config 3 whole, wavefront-banded and
 halo-banded, bit-equal, with times and peak device memory held against
-the band plan, and `run --bands 3`.  Before the last line it prints one
+the band plan, and `run --bands 3`.  Phase 18 drives the harness and eval
+surface under a temporary STEREO_REFERENCE_ROOT: `bench` on two pairs
+(288x384 and 375x450, every timed run launching exactly one frame's
+kernels; per-stage medians printed as one JSON line beside the warm frames
+of phases 6 and 10), `eval` against goldens made from the JAX package's
+stored maps, synth -> run -> eval --gt, and the debug and batched ASW
+entries, bit-equal to the pipeline.  Before the last line it prints one
 JSON object with each kernel's launches on its path, largest error against
 its plain version, time (`ms`: eager calls, by CUDA events), device time
 (`device_ms`: the same calls replayed from a CUDA graph, without the host's
@@ -1401,6 +1407,184 @@ def config3_cross(cfg, kernels, stats, smi):
                   f"whole frame")
 
 
+def reference_root(tmp, cfg, fx, cfx):
+    """A temporary reference checkout: `tsukuba` from the committed 288x384
+    pair with the JAX package's maps as its goldens, and `teddy` a seeded
+    375x450 synthetic scene (no goldens)."""
+    from stereo_matchin_tpu_torch.eval import synthetic_scene
+    from stereo_matchin_tpu_torch.io import png
+
+    root = tmp / "reference"
+    ts, td = root / "tsukuba", root / "teddy"
+    ts.mkdir(parents=True)
+    td.mkdir()
+    png.write_rgb(ts / "im1.png", fx["left"])
+    png.write_rgb(ts / "im5.png", fx["right"])
+    for name, c in (("asw_disparity.png", fx["disparity"]),
+                    ("cross_based_initial.png", cfx["initial"]),
+                    ("cross_based_disparity.png", cfx["final"])):
+        png.write_gray(ts / name, c / np.float32(255.0))
+    left, right, _, _ = synthetic_scene(np.random.default_rng(18), 375, 450,
+                                        cfg.d_max)
+    png.write_rgb(td / "im2.png", left)
+    png.write_rgb(td / "im6.png", right)
+    return root
+
+
+def cli_output(cli, args):
+    """(exit code, standard output) of one CLI command, echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(args)
+    text = buf.getvalue()
+    print("  " + text.strip().replace("\n", "\n  "))
+    return rc, text
+
+
+def bench_phase(cli, tmp, cfg, kernels, warm, smi):
+    """bench --pairs tsukuba teddy --runs 3 on the card: the TSV, each
+    timed run's launches (one frame of its method), and the per-stage
+    medians beside the warm frames of phases 6 and 10."""
+    import torch
+
+    from stereo_matchin_tpu_torch.bench import harness
+
+    runs = {"asw": [], "cross": []}
+    orig = {m: getattr(harness, f"time_{m}_method") for m in runs}
+
+    def recorded(method):
+        def timed(left, right, cfg):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            times = orig[method](left, right, cfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            runs[method].append(("x".join(map(str, left.shape[:2])),
+                                 dict(kernels.LAUNCHES), dict(times, wall=wall)))
+            return times
+        return timed
+
+    for m in runs:
+        setattr(harness, f"time_{m}_method", recorded(m))
+    try:
+        rc = cli(["bench", "--pairs", "tsukuba", "teddy", "--runs", "3",
+                  "--out", str(tmp / "bench"), "--device", "cuda"])
+    finally:
+        for m, fn in orig.items():
+            setattr(harness, f"time_{m}_method", fn)
+    if rc != 0:
+        raise AssertionError(f"bench exited with {rc}")
+    tsv = tmp / "bench" / f"{torch.cuda.get_device_name(0)}.tsv"
+    lines = tsv.read_text().split("\n")
+    header = "\t".join(["id"] + harness.CROSS_COLUMNS + ["", ""] +
+                       harness.ASW_COLUMNS)
+    if lines.count(header) != 2 or sum(ln.startswith("Run ")
+                                       for ln in lines) != 6:
+        raise AssertionError(f"{tsv.name}: not two pairs of 3 runs with every "
+                             f"column")
+    print(f"  {tsv.name}: 2 pairs x 3 runs, every column")
+    want = {"asw": expected_asw_launches(cfg, 1, "whole", kernels),
+            "cross": expected_cross_launches(1, kernels)}
+    medians = {}
+    for method, recs in runs.items():
+        if len(recs) != 8:
+            raise AssertionError(f"{method}: {len(recs)} timed runs, not 8")
+        for size, launches, _ in recs:
+            if launches != want[method]:
+                raise AssertionError(f"bench {method} {size}: launches "
+                                     f"{launches} != {want[method]}")
+        print(f"  {method}: each of 8 timed runs launched one frame's "
+              f"{ {k: v for k, v in want[method].items() if v} }")
+        for size in ("288x384", "375x450"):
+            timed = [t for s, _, t in recs if s == size][1:]   # no warm-up
+            medians.setdefault(method, {})[size] = {
+                k: round(statistics.median(t[k] for t in timed), 4)
+                for k in timed[0]}
+    print(json.dumps({"harness_medians_ms": medians, "warm_frames_ms": warm,
+                      "card": smi}))
+
+
+def harness_phase(cfg, kernels, fx, cfx, res_k, left, right, warm, smi):
+    """Phase 18: the harness, eval, synth and the debug and batched ASW
+    entries on the card, under a temporary STEREO_REFERENCE_ROOT."""
+    import os
+    import re
+
+    import torch
+
+    from stereo_matchin_tpu_torch.__main__ import main as cli
+    from stereo_matchin_tpu_torch.models import asw
+
+    old = os.environ.get("STEREO_REFERENCE_ROOT")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = pathlib.Path(tmp)
+        os.environ["STEREO_REFERENCE_ROOT"] = str(reference_root(tmp, cfg, fx,
+                                                                 cfx))
+        try:
+            print(" (b) bench at REFERENCE_CONFIG")
+            bench_phase(cli, tmp, cfg, kernels, warm, smi)
+            print(" (c) eval --pairs tsukuba against the JAX goldens")
+            rc, text = cli_output(cli, ["eval", "--pairs", "tsukuba",
+                                        "--device", "cuda"])
+            exact = {m.group(1): float(m.group(2)) for m in re.finditer(
+                r"tsukuba/(\S+\.png): exact=([0-9.]+)%", text)}
+            if rc != 0 or len(exact) != 3 or min(exact.values()) < 99.5:
+                raise AssertionError(f"eval: rc {rc}, exact {exact}")
+            print(" (d) synth -> run --pics -> eval --pics --gt")
+            scene = tmp / "scene"
+            cli_output(cli, ["synth", "--out", str(scene), "--seed", "18"])
+            pics = str(scene / "pics.txt")
+            if cli_output(cli, ["run", "--pics", pics, "--out",
+                                str(scene / "maps"), "--device", "cuda"])[0]:
+                raise AssertionError("run --pics failed")
+            rc, text = cli_output(cli, ["eval", "--pics", pics, "--gt",
+                                        str(scene / "gt.pfm"), "--device",
+                                        "cuda"])
+            if rc != 0 or len(re.findall(r"vs GT: bad1=[0-9.]+% bad2=", text)) != 2:
+                raise AssertionError(f"eval --gt: rc {rc}")
+        finally:
+            if old is None:
+                os.environ.pop("STEREO_REFERENCE_ROOT", None)
+            else:
+                os.environ["STEREO_REFERENCE_ROOT"] = old
+
+    print(" (e) asw_pipeline_debug")
+    r, k = cfg.r_iters, cfg.k_iters
+    kernels.reset_launches()
+    dbg = asw.asw_pipeline_debug(left, right, cfg)
+    torch.cuda.synchronize()
+    want = expected_asw_launches(cfg, 1, "whole", kernels)
+    want.update(two_min=1 + r + 1 + k, wta_diag=1 + r + 1 + k)
+    check_launches("debug", dict(kernels.LAUNCHES), want)
+    for f in res_k._fields:
+        if not torch.equal(getattr(dbg.result, f), getattr(res_k, f)):
+            raise AssertionError(f"debug result {f} differs from asw_pipeline")
+    if not torch.equal(dbg.aggr_wta_left[-1], res_k.wta_left):
+        raise AssertionError("debug: last aggregation round != wta_left")
+    print(f"  result bit-equal to asw_pipeline; aggr_wta {tuple(dbg.aggr_wta_left.shape)}, "
+          f"refine_wta {tuple(dbg.refine_wta_left.shape)}; last round == wta_left")
+    del dbg
+
+    print(" (f) asw_pipeline_batched, B=2")
+    l2, r2 = random_pair(np.random.default_rng(18), *left.shape[:2])
+    kernels.reset_launches()
+    got = asw.asw_pipeline_batched(torch.stack([left, l2]),
+                                   torch.stack([right, r2]), cfg)
+    torch.cuda.synchronize()
+    want = expected_asw_launches(cfg, 1, "whole", kernels)
+    check_launches("batched", dict(kernels.LAUNCHES),
+                   {n: 2 * v for n, v in want.items()})
+    for b, frame in enumerate((res_k, asw.asw_pipeline(l2, r2, cfg))):
+        for f in frame._fields:
+            if not torch.equal(getattr(got, f)[b], getattr(frame, f)):
+                raise AssertionError(f"batched frame {b} {f} differs")
+    print("  both frames bit-equal to asw_pipeline")
+
+
 def codes(img):
     from stereo_matchin_tpu_torch import ops
 
@@ -1649,6 +1833,14 @@ def main() -> int:
                 raise AssertionError(f"CLI --bands 3 {name} differs from the "
                                      f"whole-frame slice")
             print(f"  {name} equals the whole-frame slice's codes")
+
+    phase("18. harness and eval on the card: bench, eval, synth -> run -> "
+          "eval, asw_pipeline_debug, asw_pipeline_batched")
+    warm = {"asw_288x384_phase6": round(statistics.median(
+                frame_ms["kernels"]), 4),
+            "cross_288x384_phase10": round(statistics.median(
+                cross_ms["kernels"]), 4)}
+    harness_phase(cfg, kernels, fx, cfx, res_k, left, right, warm, smi)
 
     path_launches = {
         "asw": launches, "cross": cross_launches,

@@ -75,6 +75,22 @@ def safe_pair_name(name: str) -> str:
     return safe
 
 
+def get_pair(name: str) -> StereoPair:
+    """The registered pair `name` under reference_root() (KeyError for an
+    unknown name, LookupError without STEREO_REFERENCE_ROOT)."""
+    return REGISTRY[name]
+
+
+def load_pair(pair: "str | StereoPair"):
+    """Load a pair, registered by name or given as a StereoPair, as two
+    (H, W, 3) float32 [0, 1] arrays."""
+    from . import png
+
+    if isinstance(pair, str):
+        pair = get_pair(pair)
+    return png.read_rgb(pair.left), png.read_rgb(pair.right)
+
+
 def parse_pics_txt(path: str) -> list[StereoPair]:
     """Parse the reference's pics.txt format (left, right alternating lines;
     up to 20 pairs, main.cpp:136-148)."""

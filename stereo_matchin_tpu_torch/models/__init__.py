@@ -1,9 +1,13 @@
 """End-to-end pipelines of the port: the ASW method (models.asw) and the
 cross-based method (models.cross_based)."""
 
-from .asw import (ASWResult, ASWWeights, asw_pipeline,
-                  asw_pipeline_from_weights, asw_weights)
-from .cross_based import CrossResult, cross_pipeline
+from .asw import (ASWDebug, ASWResult, ASWWeights, asw_pipeline,
+                  asw_pipeline_batched, asw_pipeline_debug,
+                  asw_pipeline_debug_from_weights, asw_pipeline_from_weights,
+                  asw_weights)
+from .cross_based import CrossResult, cross_pipeline, cross_pipeline_staged
 
-__all__ = ["ASWResult", "ASWWeights", "CrossResult", "asw_pipeline",
-           "asw_pipeline_from_weights", "asw_weights", "cross_pipeline"]
+__all__ = ["ASWDebug", "ASWResult", "ASWWeights", "CrossResult",
+           "asw_pipeline", "asw_pipeline_batched", "asw_pipeline_debug",
+           "asw_pipeline_debug_from_weights", "asw_pipeline_from_weights",
+           "asw_weights", "cross_pipeline", "cross_pipeline_staged"]

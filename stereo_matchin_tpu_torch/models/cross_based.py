@@ -1,6 +1,6 @@
 """Cross-based OII stereo pipeline (Zhang/Lu/Lafruit 2009), end to end;
 PyTorch port of `stereo_matchin_tpu/models/cross_based.py`
-`cross_pipeline_impl`.
+(`cross_pipeline_impl`, the stage functions and `cross_pipeline_staged`).
 
 Reference driver: main.cpp:219-411 -- Median(L, R) -> Cross(L, R) ->
 Aggregation -> Integral_h -> Oii_hcross -> Integral_v -> Oii_vcross ->
@@ -8,9 +8,15 @@ Init_disparity -> Disparity (vote) -> Median.
 
 Everything runs on the device of the input tensors.  cfg.oii_impl picks
 the route (kernels.oii_route): on "kernels" the arms, the SAD volume, both
-OII passes and the vote run as the CUDA kernels K5-K8; "taps" runs their
-plain versions in the same sum order, so both give the same bits;
-"prefix" sums through integral images like the reference.
+OII passes and the vote run as the CUDA kernels K5-K8;
+"taps" runs their plain versions in the same sum order, so both give the
+same bits; "prefix" sums through integral images like the reference.
+
+The frame is a chain of stage functions (`_median_stage` ..
+`_vote_stage`, the JAX package's names), each a plain function on tensors;
+`cross_pipeline_staged` runs them through a `run(name, fn, *args)`
+callable (bench.harness.StageTimer.run times each one) and
+`cross_pipeline` is that chain untimed, so the two cannot drift.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from ..config import StereoConfig
 from .. import ops
 from ..kernels import oii_route
+from ..utils.profiling import call_stage
 
 
 class CrossResult(NamedTuple):
@@ -30,39 +37,79 @@ class CrossResult(NamedTuple):
     median_left: torch.Tensor   # (H, W, 3) median-filtered left (median.png)
 
 
-def cross_pipeline(left: torch.Tensor, right: torch.Tensor,
-                   cfg: StereoConfig) -> CrossResult:
-    """left/right: (H, W, 3) float32 in [0, 1] on the UNORM8 grid, on one
-    device."""
+def _median_stage(img):
+    return ops.median3x3(img)
+
+
+def _trunc_stage(img):
+    # The reference's truncated Median dispatch leaves the bottom H mod 3
+    # rows and right W mod 3 columns of its uninitialised median images
+    # unwritten, zero on the golden device (main.cpp:193,245-246,354).
+    return ops.median_dispatch_truncate(img)
+
+
+def _arms_stage(img, arm_len: int, tau: float, quirk: bool, route: str):
+    if route == "kernels":
+        from ..kernels.cross_oii import cross_arms
+
+        return cross_arms(img, arm_len, tau, quirk)
+    return ops.cross_arms(img, arm_len, tau, quirk)
+
+
+def _sad_stage(ml, mr, num_disp: int, route: str):
+    if route == "kernels":
+        from ..kernels.sad_volume import sad_volume
+
+        return sad_volume(ml, mr, num_disp)
+    return ops.sad_cost_volume(ml, mr, num_disp)              # [0,1] scale
+
+
+def _aggr_stage(cost, arms_l, arms_r, arm_len: int, impl: str):
+    return ops.cross_aggregate(cost, arms_l, arms_r, arm_len, impl=impl)
+
+
+def _init_stage(aggr, d_max: int, quantize: bool):
+    return ops.disparity_to_image(ops.wta_argmin(aggr), d_max, quantize)
+
+
+def _vote_stage(initial, arms_l, d_max: int, quantize: bool, arm_len: int,
+                impl: str):
+    voted = ops.histogram_vote(initial, arms_l, d_max, quantize=quantize,
+                               arm_len=arm_len, impl=impl)
+    return ops.median3x3(voted)
+
+
+def cross_pipeline_staged(left: torch.Tensor, right: torch.Tensor,
+                          cfg: StereoConfig, run=call_stage) -> CrossResult:
+    """The frame as its stages, each through run(name, fn, *args) under
+    the reference TSV's column names; the median-truncate quirk runs
+    outside any column, as in the JAX harness."""
     if left.shape != right.shape or left.dim() != 3 or left.shape[2] != 3:
         raise ValueError(f"need two (H, W, 3) images, got {tuple(left.shape)} "
                          f"and {tuple(right.shape)}")
     route = oii_route(cfg.oii_impl, left)
-    ml = ops.median3x3(left)
-    mr = ops.median3x3(right)
+    ml = run("medL_solo", _median_stage, left)
+    mr = run("medR_solo", _median_stage, right)
     if cfg.median_dispatch_quirk:
-        # The reference's truncated Median dispatch leaves the bottom H mod 3
-        # rows and right W mod 3 columns of its uninitialised median images
-        # unwritten, zero on the golden device (main.cpp:193,245-246).
-        ml = ops.median_dispatch_truncate(ml)
-        mr = ops.median_dispatch_truncate(mr)
-    if route == "kernels":
-        from ..kernels.cross_oii import cross_arms
-        from ..kernels.sad_volume import sad_volume
-    else:
-        cross_arms, sad_volume = ops.cross_arms, ops.sad_cost_volume
-    arms_l = cross_arms(ml, cfg.arm_len, cfg.tau, cfg.legacy_cross_arm_quirk)
-    arms_r = cross_arms(mr, cfg.arm_len, cfg.tau, cfg.legacy_cross_arm_quirk)
-    cost = sad_volume(ml, mr, cfg.num_disp)                  # [0,1] scale
-    aggr = ops.cross_aggregate(cost, arms_l, arms_r, cfg.arm_len,
-                               impl=cfg.oii_impl)
-    initial = ops.disparity_to_image(ops.wta_argmin(aggr), cfg.d_max,
-                                     cfg.quantize_maps)
-    voted = ops.histogram_vote(initial, arms_l, cfg.d_max,
-                               quantize=cfg.quantize_maps, arm_len=cfg.arm_len,
-                               impl=cfg.oii_impl)
-    final = ops.median3x3(voted)
+        ml, mr = _trunc_stage(ml), _trunc_stage(mr)
+    arms_l = run("cross_h", _arms_stage, ml, cfg.arm_len, cfg.tau,
+                 cfg.legacy_cross_arm_quirk, route)
+    arms_r = run("cross_v", _arms_stage, mr, cfg.arm_len, cfg.tau,
+                 cfg.legacy_cross_arm_quirk, route)
+    cost = run("aggregation", _sad_stage, ml, mr, cfg.num_disp, route)
+    aggr = run("aggr_h", _aggr_stage, cost, arms_l, arms_r, cfg.arm_len,
+               cfg.oii_impl)
+    initial = run("init_disp", _init_stage, aggr, cfg.d_max,
+                  cfg.quantize_maps)
+    final = run("final_disp", _vote_stage, initial, arms_l, cfg.d_max,
+                cfg.quantize_maps, cfg.arm_len, cfg.oii_impl)
     if cfg.median_dispatch_quirk:
-        # The final median (main.cpp:354) runs on the same truncated size.
-        final = ops.median_dispatch_truncate(final)
+        final = _trunc_stage(final)
     return CrossResult(initial=initial, final=final, median_left=ml)
+
+
+def cross_pipeline(left: torch.Tensor, right: torch.Tensor,
+                   cfg: StereoConfig) -> CrossResult:
+    """left/right: (H, W, 3) float32 in [0, 1] on the UNORM8 grid, on one
+    device."""
+    return cross_pipeline_staged(left, right, cfg)

@@ -82,9 +82,13 @@ def asw_aggregate_pass(cost, w_left, w_right, axis: int, radius: int,
     return asw_pass_plain(cost, w_left, w_right, den, eps, axis), den
 
 
+def _call(fn, *args):
+    return fn(*args)
+
+
 def asw_levels(cost, wv_left, wv_right, wh_left, wh_right, radius: int,
                r_iters: int, eps: float = 1e-5, kernels: str = "auto",
-               d0: int = 0):
+               d0: int = 0, run_v=None, run_h=None):
     """r_iters x (vertical pass -> horizontal pass), as main.cpp:492-515,
     yielding `cost` (level 0), then each level's output.
 
@@ -92,7 +96,9 @@ def asw_levels(cost, wv_left, wv_right, wh_left, wh_right, radius: int,
     denominators are computed once (they depend only on the strips).
     kernels: "auto" runs the CUDA kernels on CUDA tensors and the plain
     ops on the CPU; "jnp" the plain ops anywhere; "pallas" demands the
-    kernels."""
+    kernels.  run_v / run_h: callables run(fn, *args) through which each
+    vertical / horizontal pass and its axis's denominator go (None calls
+    fn directly)."""
     from ..kernels import use_kernels
 
     if wv_left.shape[0] != 2 * radius + 1:
@@ -102,15 +108,16 @@ def asw_levels(cost, wv_left, wv_right, wh_left, wh_right, radius: int,
         from ..kernels.asw_aggregation import asw_den, asw_pass
     else:
         asw_den, asw_pass = asw_den_plain, asw_pass_plain
+    run_v, run_h = run_v or _call, run_h or _call
     D = cost.shape[0]
-    den_v = asw_den(wv_left, wv_right, eps, d0, D)
-    den_h = asw_den(wh_left, wh_right, eps, d0, D)
+    den_v = run_v(asw_den, wv_left, wv_right, eps, d0, D)
+    den_h = run_h(asw_den, wh_left, wh_right, eps, d0, D)
     c = cost
     del cost                 # a volume passed in dies after the first pass
     yield c
     for _ in range(r_iters):
-        c = asw_pass(c, wv_left, wv_right, den_v, eps, 1, d0)
-        c = asw_pass(c, wh_left, wh_right, den_h, eps, 2, d0)
+        c = run_v(asw_pass, c, wv_left, wv_right, den_v, eps, 1, d0)
+        c = run_h(asw_pass, c, wh_left, wh_right, den_h, eps, 2, d0)
         yield c
 
 

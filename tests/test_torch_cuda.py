@@ -547,3 +547,75 @@ def test_cross_band_drivers_through_kernels_equal_whole_frame(wf):
                                       cfg.replace(oii_impl="taps"), 3,
                                       wavefront=wf)
     assert torch.equal(taps[0], got[0]) and torch.equal(taps[1], got[1])
+
+
+# --- the harness, the staged cross pipeline, the debug and batched ASW -----
+
+def _one_frame_launches(run):
+    kernels.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return dict(kernels.LAUNCHES), out
+
+
+@pytest.mark.parametrize("chunks", [0, 2])
+def test_harness_launches_one_frame_of_each_method(chunks):
+    """One time_asw_method / time_cross_method launches what one frame of
+    its pipeline launches, and times every column from CUDA events."""
+    from stereo_matchin_tpu_torch.bench import harness
+
+    dev = cuda_device()
+    cfg = TINY_CONFIG.replace(aggr_d_chunks=chunks)
+    left, right = _pair(dev, 48, 64, seed=6)
+    for timed, frame, columns in (
+            (harness.time_asw_method, asw.asw_pipeline, harness.ASW_COLUMNS),
+            (harness.time_cross_method, cross_based.cross_pipeline,
+             harness.CROSS_COLUMNS)):
+        want, _ = _one_frame_launches(lambda: frame(left, right, cfg))
+        got, times = _one_frame_launches(lambda: timed(left, right, cfg))
+        assert got == want and sum(got.values()) > 0
+        assert all(times[c] >= 0.0 for c in columns)
+
+
+def test_staged_cross_pipeline_through_kernels_equals_taps():
+    dev = cuda_device()
+    cfg = TINY_CONFIG.replace(median_dispatch_quirk=True)
+    left, right = _pair(dev, 50, 70, seed=8)
+    got = cross_based.cross_pipeline_staged(left, right, cfg)
+    want = cross_based.cross_pipeline_staged(left, right,
+                                             cfg.replace(oii_impl="taps"))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k_iters", [2, 0])
+def test_asw_debug_through_kernels_equals_the_pipeline(k_iters):
+    """The debug result is asw_pipeline's and its captures the plain ops';
+    K3/K4 run 1 + r + 1 + k times."""
+    dev = cuda_device()
+    cfg = TINY_CONFIG.replace(k_iters=k_iters)
+    left, right = _pair(dev, 48, 64, seed=9)
+    r, k = cfg.r_iters, cfg.k_iters
+    launches, dbg = _one_frame_launches(
+        lambda: asw.asw_pipeline_debug(left, right, cfg))
+    assert {n_: launches[n_] for n_ in kernels.ASW_KERNELS} == {
+        "asw_den": 2, "asw_pass_v": r, "asw_pass_h": r, "asw_pass_win": 0,
+        "two_min": 1 + r + 1 + k, "wta_diag": 1 + r + 1 + k}
+    want = asw.asw_pipeline(left, right, cfg)
+    for g, w in zip(dbg.result, want):
+        assert torch.equal(g, w)
+    assert torch.equal(dbg.aggr_wta_left[-1], want.wta_left)
+    plain = asw.asw_pipeline_debug(left, right, cfg.replace(kernels="jnp"))
+    for f in dbg._fields[:-1]:
+        assert torch.equal(getattr(dbg, f), getattr(plain, f)), f
+
+
+def test_asw_batched_through_kernels_equals_single_frames():
+    dev = cuda_device()
+    cfg = TINY_CONFIG
+    pairs = [_pair(dev, 40, 56, seed=s) for s in (10, 11)]
+    got = asw.asw_pipeline_batched(torch.stack([p[0] for p in pairs]),
+                                   torch.stack([p[1] for p in pairs]), cfg)
+    for b, (left, right) in enumerate(pairs):
+        for g, w in zip(got, asw.asw_pipeline(left, right, cfg)):
+            assert torch.equal(g[b], w)

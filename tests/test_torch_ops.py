@@ -177,7 +177,11 @@ def test_importing_the_port_loads_no_jax():
             "stereo_matchin_tpu_torch.kernels.cross_oii",
             "stereo_matchin_tpu_torch.kernels.sad_volume",
             "stereo_matchin_tpu_torch.io", "stereo_matchin_tpu_torch.eval",
-            "stereo_matchin_tpu_torch.models.tiled", "chip_smoke"]
+            "stereo_matchin_tpu_torch.models.tiled",
+            "stereo_matchin_tpu_torch.bench",
+            "stereo_matchin_tpu_torch.eval.metrics",
+            "stereo_matchin_tpu_torch.io.groundtruth",
+            "stereo_matchin_tpu_torch.utils", "chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
