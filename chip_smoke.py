@@ -26,8 +26,14 @@ surface under a temporary STEREO_REFERENCE_ROOT: `bench` on two pairs
 kernels; per-stage medians printed as one JSON line beside the warm frames
 of phases 6 and 10), `eval` against goldens made from the JAX package's
 stored maps, synth -> run -> eval --gt, and the debug and batched ASW
-entries, bit-equal to the pipeline.  Before the last line it prints one
-JSON object with each kernel's launches on its path, largest error against
+entries, bit-equal to the pipeline.  Phase 19 drives the sharded
+pipelines (parallel/) in one spawn of 4 gloo ranks sharing the card
+(meshes (1,2,2), (1,4,1), (1,1,4) and (2,2,1) at REFERENCE_CONFIG on
+288x384, then config 3 on (1,2,2); both methods bit-equal to the
+unsharded frames of phases 4, 8, 15 and 16, every rank's launches
+asserted) and once more through one NCCL rank.  Before the last line it
+prints one JSON object with each kernel's launches on its path (and per
+rank on the sharded path at config 3), largest error against
 its plain version, time (`ms`: eager calls, by CUDA events), device time
 (`device_ms`: the same calls replayed from a CUDA graph, without the host's
 dispatch), plain time (eager calls) and least time (`bound_ms`, from the
@@ -117,12 +123,15 @@ AGGREGATION_EDGES = [(3, 13, 150, 11, 0), (5, 9, 20, 7, 3), (5, 17, 40, 9, 45),
 # K4's first pass walks them to the end); short d1 with a few outliers per
 # warp at config 3's depth (K4's second pass walks the outliers from its
 # queue).  The volumes hold small integers (exact ties) and a block of
-# planes at or above the big cap.
-WTA_EDGES = [(1, 48, 64, "argmin", 0), (3, 40, 64, "argmin", 0),
-             (61, 37, 53, "random", 0), (61, 32, 96, "argmin", 1),
-             (17, 30, 20, "last", 0), (33, 24, 300, "random", 0),
-             (61, 32, 200, "zero", 0), (61, 32, 200, "last", 0),
-             (280, 12, 700, "random", 0), (280, 8, 700, "outliers", 0)]
+# planes at or above the big cap.  The last field is K3's disparity offset
+# d0 (plane d holds disparity d0 + d, as a disp shard's volume does): 0,
+# then two shard volumes, one of them 4 bytes off a 16-byte boundary.
+WTA_EDGES = [(1, 48, 64, "argmin", 0, 0), (3, 40, 64, "argmin", 0, 0),
+             (61, 37, 53, "random", 0, 0), (61, 32, 96, "argmin", 1, 0),
+             (17, 30, 20, "last", 0, 0), (33, 24, 300, "random", 0, 0),
+             (61, 32, 200, "zero", 0, 0), (61, 32, 200, "last", 0, 0),
+             (280, 12, 700, "random", 0, 0), (280, 8, 700, "outliers", 0, 0),
+             (31, 32, 96, "argmin", 0, 30), (140, 12, 700, "argmin", 1, 140)]
 # NVIDIA H100 SXM peaks (NVIDIA's datasheet): HBM bytes per second and
 # float32 operations per second outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -341,14 +350,14 @@ def check_kernels(pairs, cfg, stats):
             got = kw.wta_diag(cost, d1, *pen, big=cfg.big)
             want = _diag_two_min_plain(cost, d1, *pen, big=cfg.big)
             compare(f"wta_diag {tag}", got, want, stats["wta_diag"])
-    for D, H, W, kind, offset in WTA_EDGES:
+    for D, H, W, kind, offset, d0 in WTA_EDGES:
         cost, pen, d1_of = wta_edge_inputs(rng, D, H, W, kind, offset)
         for p in ((None, None), pen):
-            tag = (f"edge D={D} {H}x{W} d1={kind} offset={offset} "
+            tag = (f"edge D={D} {H}x{W} d1={kind} offset={offset} d0={d0} "
                    f"penalty={'yes' if p[0] is not None else 'no'}")
-            want = _two_min_plain(cost, *p, big=cfg.big)
-            compare(f"two_min {tag}", kw.two_min(cost, *p, big=cfg.big), want,
-                    stats["two_min"])
+            want = _two_min_plain(cost, *p, big=cfg.big, d0=d0)
+            compare(f"two_min {tag}", kw.two_min(cost, *p, big=cfg.big, d0=d0),
+                    want, stats["two_min"])
             d1 = d1_of(want[2])
             queued = k4_queued(d1, D)
             if kind == "outliers" and not queued:
@@ -1278,7 +1287,8 @@ def config3_asw(cfg, kernels, smi):
     """Config 3 ASW through the kernels: whole frame, wavefront and halo
     bands (5), twice, and once the wavefront in 8 bands of 256 kept rows;
     times, and peak memory per band held against the band plan
-    (models.tiled.asw_plan_bytes)."""
+    (models.tiled.asw_plan_bytes).  Returns the whole frame's maps (on the
+    host)."""
     import torch
 
     from stereo_matchin_tpu_torch.models import asw, tiled, wavefront
@@ -1298,10 +1308,13 @@ def config3_asw(cfg, kernels, smi):
         "wavefront8": (8, True, [g.e - g.s for g in
                                  wavefront.plan_bands(H, 8, cfg)])}
 
+    whole = {}
+
     def run(route):
         bands, wf, _ = routes[route]
         if bands == 1:
             res = asw.asw_pipeline(left, right, cfg)
+            whole.update((f, getattr(res, f)) for f in SHARDED_MAPS["asw"])
             return res.disparity, res.filled
         return tiled.asw_pipeline_tiled(left, right, cfg, bands, wavefront=wf)
 
@@ -1355,12 +1368,14 @@ def config3_asw(cfg, kernels, smi):
             "config 3 ASW peaked above the band plan: " + "; ".join(
                 f"{r} band {i}: {p / 1e9:.3f} > {q / 1e9:.3f} GB"
                 for r, i, p, q in over))
+    return {f: v.cpu() for f, v in whole.items()}
 
 
 def config3_cross(cfg, kernels, stats, smi):
     """Config 3 cross-based: K5-K8 against their plain versions on one
     band's rows, then the whole frame, wavefront and halo bands through the
-    kernels; times and peak memory."""
+    kernels; times and peak memory.  Returns the whole frame's maps (on
+    the host)."""
     import torch
 
     from stereo_matchin_tpu_torch.models import cross_based, tiled
@@ -1389,6 +1404,9 @@ def config3_cross(cfg, kernels, stats, smi):
             launches[route] = dict(kernels.LAUNCHES)
             maps[route] = ((out.initial, out.final) if route == "whole"
                            else out)
+            if route == "whole":
+                whole = {f: getattr(out, f).cpu()
+                         for f in SHARDED_MAPS["cross"]}
             print(f"  cross {route} (run {rep + 1}): {ms:.1f} ms; peak "
                   f"{peak / 1e9:.3f} GB; {smi}")
             del out
@@ -1405,6 +1423,7 @@ def config3_cross(cfg, kernels, stats, smi):
                                          f"differs on {n} pixels")
             print(f"  cross {route}: initial and final bit-equal to the "
                   f"whole frame")
+    return whole
 
 
 def reference_root(tmp, cfg, fx, cfx):
@@ -1583,6 +1602,173 @@ def harness_phase(cfg, kernels, fx, cfx, res_k, left, right, warm, smi):
             if not torch.equal(getattr(got, f)[b], getattr(frame, f)):
                 raise AssertionError(f"batched frame {b} {f} differs")
     print("  both frames bit-equal to asw_pipeline")
+
+
+# The maps of each method that the sharded phase holds bit-equal.
+SHARDED_MAPS = {"asw": ("disparity", "filled", "consistency_pre",
+                        "consistency_post", "wta_left", "wta_right"),
+                "cross": ("initial", "final", "median_left")}
+# The meshes of the sharded phase at 288x384 over 4 ranks, (batch, row,
+# disp): D = 61 pads to 62 on 2 disp shards and to 64 on 4; (2, 2, 1) takes
+# a batch of two frames.
+SHARDED_MESHES = [(1, 2, 2), (1, 4, 1), (1, 1, 4), (2, 2, 1)]
+
+
+def config3_batch(dev, seed):
+    """config3_pair as a batch of one frame (a rank makes its own)."""
+    return tuple(x[None] for x in config3_pair(seed))
+
+
+def scene_batch(dev, seed, H, W, d_max):
+    """scene_pair as a batch of one frame (a rank makes its own)."""
+    return tuple(x[None] for x in scene_pair(seed, H, W, d_max))
+
+
+def sharded_launches(method, cfg, kernels):
+    """Launches of one frame on one rank of the sharded pipelines: K1 x2,
+    the windowed K2 and K2 h r times, K3 k + 1 times at the shard's d0 (the
+    target scan is plain), or K5 x2 and K6-K8 once each."""
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    if method == "asw":
+        want.update(asw_den=2, asw_pass_win=cfg.r_iters,
+                    asw_pass_h=cfg.r_iters, two_min=cfg.k_iters + 1)
+    else:
+        want.update(cross_arms=2, sad_volume=1, oii_pass_h=1, oii_pass_v=1,
+                    vote_h=1, vote_v=1)
+    return want
+
+
+def check_sharded(ranks, cases, refs, kernels, smi):
+    """Each case's gathered maps against its unsharded frames (refs[pair]
+    [method]: field -> (B, H, W[, 3]) host tensor), bit for bit, and every
+    rank's launches; prints per-rank frame ms and peak memory.  Returns
+    the ranks' records per case."""
+    import torch
+
+    from stereo_matchin_tpu_torch import StereoConfig
+
+    out = []
+    for k, case in enumerate(cases):
+        recs = [r[k] for r in ranks]
+        ms = "; ".join(", ".join(f"{x:.1f}" for x in r["ms"]) for r in recs)
+        peak = ", ".join(f"{r['peak'] / 1e9:.3f}" for r in recs)
+        tag = (f"{case.method} mesh {case.mesh} {case.pair}"
+               + (f" halo {case.halo_mode}" if case.method == "asw" else ""))
+        print(f"  {tag}: frame ms per rank (cold, warm) {ms}; peak GB per "
+              f"rank {peak}; {smi}")
+        want = sharded_launches(case.method, StereoConfig(**case.cfg),
+                                kernels)
+        for r in recs:
+            if r["launches"] != want:
+                raise AssertionError(f"{tag}: rank {r['coord']} launched "
+                                     f"{r['launches']}, want {want}")
+        out.append(recs)
+        if case.halo_mode == "local":
+            continue
+        got = recs[0]["maps"]
+        for f in SHARDED_MAPS[case.method]:
+            w = refs[case.pair][case.method][f]
+            g = torch.from_numpy(got[f])
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"{tag}: {f} differs from the unsharded "
+                                     f"frame")
+        print(f"  {tag}: {', '.join(SHARDED_MAPS[case.method])} bit-equal to "
+              f"the unsharded frames; launches per rank as expected")
+    return out
+
+
+def epipolar_scan_time(c3_kw, smi):
+    """The plain target scan of one config-3 (1, 2, 2) shard (140 planes of
+    994 x 2880, parallel/wta_sharded.py epipolar_partial, 279 steps), alone
+    on the card in this process: a sharded ASW frame runs it k + 1 = 7
+    times a rank."""
+    import torch
+
+    from stereo_matchin_tpu_torch.parallel.wta_sharded import epipolar_partial
+
+    H, W = CONFIG3_HW
+    D = c3_kw["d_max"] + 1
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cost = torch.rand((D // 2, H // 2, W), generator=gen, device="cuda")
+    d1 = torch.randint(0, D, (H // 2, W), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    sc = torch.rand((H // 2, W), generator=gen, device="cuda")
+    ct = torch.rand((H // 2, W), generator=gen, device="cuda") * D
+    scan = lambda: epipolar_partial(cost, d1, D // 2, D // 2, D, sc, ct)
+    scan()
+    _, ms = timed(scan)
+    print(f"  config-3 shard's plain epipolar scan ({D // 2} planes of "
+          f"{H // 2}x{W}, {D - 1} steps, with the penalty): {ms:.1f} ms "
+          f"alone on the card, 7 a frame; {smi}")
+
+
+def sharded_phase(cfg, kernels, left, right, refs, c3_refs, smi):
+    """The sharded pipelines (parallel/) in one spawn of 4 gloo ranks on the
+    one card, then one NCCL rank.  refs: the unsharded 288x384 frames of
+    phases 4 and 8 (method -> field -> tensor); c3_refs: phases 15 and
+    16's whole config-3 frames (the same, on the host).  Returns rank 0's
+    launches in the config-3 (1, 2, 2) frames, per method."""
+    import dataclasses
+
+    import torch
+
+    from stereo_matchin_tpu_torch.models import asw, cross_based
+    from stereo_matchin_tpu_torch.parallel.distributed import spawn
+    from stereo_matchin_tpu_torch.parallel.dryrun import Case, sharded_maps
+
+    H, W = left.shape[:2]
+    sl, sr = scene_pair(5, H, W, cfg.d_max)
+    scene = {"asw": asw.asw_pipeline(sl, sr, cfg),
+             "cross": cross_based.cross_pipeline(sl, sr, cfg)}
+    host = lambda *xs: tuple(x.cpu().numpy() for x in xs)
+    pairs = {"fixture": host(left[None], right[None]),
+             "batch": host(torch.stack([left, sl]), torch.stack([right, sr])),
+             "config3_asw": (config3_batch, (3,)),
+             "config3_cross": (scene_batch, (4, *CONFIG3_HW, 279))}
+    refs = {
+        "fixture": {m: {f: refs[m][f][None].cpu() for f in SHARDED_MAPS[m]}
+                    for m in refs},
+        "batch": {m: {f: torch.stack([refs[m][f], getattr(scene[m], f)])
+                      .cpu() for f in SHARDED_MAPS[m]} for m in refs},
+        "config3_asw": {"asw": {f: v[None] for f, v in c3_refs["asw"].items()}},
+        "config3_cross": {"cross": {f: v[None] for f, v in
+                                    c3_refs["cross"].items()}}}
+    ref_kw = dataclasses.asdict(cfg.replace(median_dispatch_quirk=False))
+    c3_kw = dict(ref_kw, d_max=279)
+    cases = []
+    for mesh in SHARDED_MESHES:
+        pair = "batch" if mesh[0] > 1 else "fixture"
+        cases += [Case("asw", mesh, ref_kw, pair),
+                  Case("cross", mesh, ref_kw, pair)]
+    cases += [Case("asw", (1, 2, 2), c3_kw, "config3_asw"),
+              Case("asw", (1, 2, 2), c3_kw, "config3_asw", "local"),
+              Case("cross", (1, 2, 2), c3_kw, "config3_cross")]
+    print("  4 gloo ranks share this one card: collectives are staged "
+          "through host memory, and the times are of ranks taking turns on "
+          "one card, not multi-card scaling")
+    del scene
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_maps, 4, "gloo", (cases, pairs, "cuda", 2), 900)
+    print(f"  spawn of 4 ranks: {time.perf_counter() - t0:.1f} s in all")
+    recs = check_sharded(ranks, cases, refs, kernels, smi)
+    for e, loc in zip(recs[-3], recs[-2]):
+        ex, lo = e["ms"][-1], loc["ms"][-1]
+        print(f"  config 3 ASW (1, 2, 2) rank {e['coord']}, warm: exchange "
+              f"{ex:.1f} ms, local halos {lo:.1f} ms (the row axis's "
+              f"share: {ex - lo:.1f} ms); {smi}")
+    epipolar_scan_time(c3_kw, smi)
+
+    t0 = time.perf_counter()
+    nccl = [Case("asw", (1, 1, 1), ref_kw, "fixture"),
+            Case("cross", (1, 1, 1), ref_kw, "fixture")]
+    ranks = spawn(sharded_maps, 1, "nccl",
+                  (nccl, {"fixture": pairs["fixture"]}, "cuda", 2), 300)
+    print(f"  NCCL at world size 1 (the one card; NCCL between cards is not "
+          f"run here): {time.perf_counter() - t0:.1f} s")
+    check_sharded(ranks, nccl, refs, kernels, smi)
+    return {"asw": recs[-3][0]["launches"], "cross": recs[-1][0]["launches"]}
 
 
 def codes(img):
@@ -1803,12 +1989,13 @@ def main() -> int:
 
     phase(f"15. config 3 ASW through the kernels: whole frame, wavefront and "
           f"halo bands ({CONFIG3_BANDS}), wavefront in 8 bands")
-    config3_asw(c3, kernels, smi)
+    c3_whole = {"asw": config3_asw(c3, kernels, smi)}
 
     phase(f"16. config 3 cross-based: kernels against their plain versions "
           f"on one band's rows; whole frame, wavefront and halo bands "
           f"({CONFIG3_BANDS})")
-    config3_cross(cfg.replace(d_max=279), kernels, stats, smi)
+    c3_whole["cross"] = config3_cross(cfg.replace(d_max=279), kernels, stats,
+                                      smi)
 
     phase("17. run CLI --bands 3 on PNG files")
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
@@ -1842,6 +2029,17 @@ def main() -> int:
                 cross_ms["kernels"]), 4)}
     harness_phase(cfg, kernels, fx, cfx, res_k, left, right, warm, smi)
 
+    phase("19. sharded pipelines (parallel/): 4 gloo ranks on this card at "
+          "REFERENCE_CONFIG on meshes (1,2,2), (1,4,1), (1,1,4), (2,2,1) and "
+          "at config 3 on (1,2,2), both methods bit-equal to the unsharded "
+          "frames; one NCCL rank")
+    sharded = sharded_phase(
+        cfg, kernels, left, right,
+        {"asw": {f: getattr(res_k, f) for f in SHARDED_MAPS["asw"]},
+         "cross": {f: getattr(cross_k, f) for f in SHARDED_MAPS["cross"]}},
+        c3_whole, smi)
+    del c3_whole
+
     path_launches = {
         "asw": launches, "cross": cross_launches,
         "bands": band_launches["wavefront"]}
@@ -1851,6 +2049,9 @@ def main() -> int:
         report["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches[path][key],
+            # Per rank and frame on the sharded path at config 3, (1, 2, 2).
+            "sharded_launches": sharded[
+                "asw" if key in kernels.ASW_KERNELS else "cross"][key],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": stats[name]["ms"], "device_ms": stats[name]["device_ms"],
             "plain_ms": stats[name]["plain_ms"],

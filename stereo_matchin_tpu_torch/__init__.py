@@ -11,10 +11,13 @@ Layering, module for module as in the JAX package:
               nvcc at first use and bound with ctypes
   models    — the ASW and cross-based pipelines end to end
               (models.asw, models.cross_based)
+  parallel  — meshes, halo exchange and the sharded pipelines over
+              torch.distributed (one process per shard)
   convert   — carries the JAX package's weight strips into the port
-  config, io, eval — StereoConfig, PNG I/O and pics.txt, synthetic scenes
+  config, io, eval — StereoConfig / MeshConfig, PNG I/O and pics.txt,
+              synthetic scenes
 """
 
-from .config import REFERENCE_CONFIG, StereoConfig, TINY_CONFIG
+from .config import MeshConfig, REFERENCE_CONFIG, StereoConfig, TINY_CONFIG
 
-__all__ = ["REFERENCE_CONFIG", "StereoConfig", "TINY_CONFIG"]
+__all__ = ["MeshConfig", "REFERENCE_CONFIG", "StereoConfig", "TINY_CONFIG"]

@@ -1,8 +1,8 @@
-"""Configuration of the port's pipelines.
+"""Configuration of the port's pipelines and of its device mesh.
 
 The same fields, defaults and checks as the JAX package's
-`stereo_matchin_tpu.config.StereoConfig`, kept here so that the port
-stands alone; a tier-1 test holds the two equal.  The defaults reproduce
+`stereo_matchin_tpu.config.StereoConfig` and `MeshConfig`, kept here so that the port
+stands alone; a tier-1 test holds the copies equal.  The defaults reproduce
 the reference (main.cpp:176-177, 202-205): 61 disparity hypotheses, a
 33-tap support window, cross arms of length 25, tau 0.1, r = 7
 aggregation and k = 6 refinement iterations.
@@ -110,3 +110,27 @@ REFERENCE_CONFIG = StereoConfig()
 
 # Small CPU-runnable configuration (BASELINE.json config[0]).
 TINY_CONFIG = StereoConfig(d_max=15, radius=4, arm_len=6, r_iters=2, k_iters=2)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout for the sharded pipelines (parallel/).
+
+    Axes:
+      batch — data parallelism over independent stereo pairs (frames).
+      row   — spatial tiling of the image height with halo exchange
+              (the sequence-parallel analogue).
+      disp  — sharding of the disparity axis of the cost volume with a
+              top-2 argmin reduction at WTA (the tensor-parallel analogue).
+    """
+
+    batch: int = 1
+    row: int = 1
+    disp: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.batch * self.row * self.disp
+
+    def axis_names(self):
+        return ("batch", "row", "disp")

@@ -72,7 +72,7 @@ __global__ void two_min_kernel(const float* __restrict__ cost,
                                float* __restrict__ c1_out,
                                float* __restrict__ c2_out,
                                int* __restrict__ d1_out, int D, int HW,
-                               float big) {
+                               int d0, float big) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= HW) return;
   const bool pen = sc != nullptr;
@@ -82,7 +82,7 @@ __global__ void two_min_kernel(const float* __restrict__ cost,
   int best = 0;
   for (int d = 0; d < D; ++d) {
     float v = cost[(long long)d * HW + p];
-    if (pen) v = v + s * fabsf(center - (float)d);
+    if (pen) v = v + s * fabsf(center - (float)(d0 + d));
     if (v < c1) {
       c2 = c1;
       c1 = v;
@@ -261,16 +261,17 @@ void launch_diag(const float* cost, const int* d1, const float* sc,
 
 }  // namespace
 
-// cost: (D, H, W); sc, ct: (H, W) or both null (no penalty);
-// c1, c2: (H, W) f32; d1: (H, W) int32.  Returns cudaGetLastError().
+// cost: (D, H, W), plane d holding disparity d0 + d (the penalty's d);
+// sc, ct: (H, W) or both null (no penalty); c1, c2: (H, W) f32; d1: (H, W)
+// int32, the plane index.  Returns cudaGetLastError().
 extern "C" int two_min_f32(const float* cost, const float* sc, const float* ct,
                            float* c1, float* c2, int* d1, int D, int H, int W,
-                           float big, void* stream) {
+                           int d0, float big, void* stream) {
   const long long n = (long long)H * W;
   if (n > 0) {
     two_min_kernel<<<(unsigned)((n + kThreadsK3 - 1) / kThreadsK3),
                      kThreadsK3, 0, (cudaStream_t)stream>>>(
-        cost, sc, ct, c1, c2, d1, D, H * W, big);
+        cost, sc, ct, c1, c2, d1, D, H * W, d0, big);
   }
   return (int)cudaGetLastError();
 }

@@ -37,7 +37,7 @@ K4_SPARSE = 8
 def _lib():
     lib = library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.two_min_f32.argtypes = [p, p, p, p, p, p, i, i, i, f, p]
+    lib.two_min_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
     lib.two_min_f32.restype = i
     lib.wta_diag_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.wta_diag_f32.restype = i
@@ -71,14 +71,17 @@ def _ptr(t):
 
 
 def two_min(cost: torch.Tensor, sc: torch.Tensor | None = None,
-            ct: torch.Tensor | None = None, big: float = 1e5):
-    """K3: ascending-d two-min of cost + sc*|ct - d| (penalty optional).
+            ct: torch.Tensor | None = None, big: float = 1e5, d0: int = 0):
+    """K3: ascending-d two-min of cost + sc*|ct - (d0 + d)| (penalty
+    optional); plane d of cost holds disparity d0 + d (a disp shard).
 
-    Returns (c1, c2, d1 int32), each (H, W): ties to the lowest d; if
-    nothing is below `big`, c1 = c2 = big and d1 = 0."""
+    Returns (c1, c2, d1 int32), each (H, W), d1 the plane index: ties to
+    the lowest d; if nothing is below `big`, c1 = c2 = big and d1 = 0."""
     _check_cost_and_penalty(cost, sc, ct)
+    if d0 < 0:
+        raise ValueError(f"need d0 >= 0, got {d0}")
     if cost.device.type == "cpu":
-        return _two_min_plain(cost, sc, ct, big)
+        return _two_min_plain(cost, sc, ct, big, d0)
     pen = () if sc is None else (sc, ct)
     require_cuda(cost, *pen)
     D, H, W = cost.shape
@@ -89,7 +92,7 @@ def two_min(cost: torch.Tensor, sc: torch.Tensor | None = None,
         stream = torch.cuda.current_stream(cost.device).cuda_stream
         rc = _lib().two_min_f32(cost.data_ptr(), _ptr(sc), _ptr(ct),
                                 c1.data_ptr(), c2.data_ptr(), d1.data_ptr(),
-                                D, H, W, big, stream)
+                                D, H, W, d0, big, stream)
     raise_on_error(rc, "two_min")
     LAUNCHES["two_min"] += 1
     return c1, c2, d1

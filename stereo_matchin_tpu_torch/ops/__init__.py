@@ -16,8 +16,8 @@ from .cost import sad_cost_volume, shifted_columns
 from .cross import cross_arms
 from .median import median3x3, median_dispatch_truncate
 from .oii import combined_arms, cross_aggregate, oii_pass_plain
-from .refinement import (refine_pass_h, refine_pass_v, refine_view,
-                         refinement_weights)
+from .refinement import (refine_pass_h, refine_pass_v, refine_pass_v_win,
+                         refine_view, refinement_weights)
 from .support import support_weights
 from .vote import (histogram_vote, vote_counts_plain, vote_indices,
                    vote_mode_plain)
@@ -48,6 +48,7 @@ __all__ = [
     "red_diagnostic",
     "refine_pass_h",
     "refine_pass_v",
+    "refine_pass_v_win",
     "refine_view",
     "refinement_weights",
     "sad_cost_volume",

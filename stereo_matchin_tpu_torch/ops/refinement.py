@@ -24,14 +24,20 @@ def refinement_weights(img, radius: int, gamma_c: float, gamma_p: float):
 
 def refine_pass_v(w, d_est, conf, radius: int, eps: float = 1e-5):
     """w: (T, H, W) vertical weights; d_est, conf: (H, W). Returns (value, den)."""
-    H = d_est.shape[0]
-    conf_p = edge_pad(conf, radius, radius, 0)
-    d_p = edge_pad(d_est, radius, radius, 0)
-    num = d_est.new_full(d_est.shape, eps)
-    den = d_est.new_full(d_est.shape, eps)
-    for t in range(2 * radius + 1):
-        F = conf_p.narrow(0, t, H)
-        num = num + w[t] * F * d_p.narrow(0, t, H)
+    return refine_pass_v_win(w, edge_pad(d_est, radius, radius, 0),
+                             edge_pad(conf, radius, radius, 0), eps)
+
+
+def refine_pass_v_win(w, d_win, conf_win, eps: float = 1e-5):
+    """The vertical pass over a window of real rows: d_win, conf_win are
+    (H + T - 1, W) and output row y reads rows y .. y + T - 1 (a row
+    shard's halo-exchanged tile; parallel/asw_sharded.py).  w: (T, H, W)."""
+    T, H = w.shape[:2]
+    num = d_win.new_full((H, d_win.shape[1]), eps)
+    den = d_win.new_full((H, d_win.shape[1]), eps)
+    for t in range(T):
+        F = conf_win.narrow(0, t, H)
+        num = num + w[t] * F * d_win.narrow(0, t, H)
         den = den + w[t] * F
     return num / den, den
 

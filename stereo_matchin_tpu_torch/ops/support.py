@@ -27,22 +27,31 @@ from .common import edge_pad
 
 
 def support_weights(img: torch.Tensor, radius: int, gamma_c: float,
-                    gamma_p: float, axis: int) -> torch.Tensor:
+                    gamma_p: float, axis: int, row0: int = 0,
+                    h_glob: int | None = None) -> torch.Tensor:
     """img: (H, W, 3) in [0, 1].  axis=0 -> vertical taps, 1 -> horizontal.
 
-    Returns (T, H, W) float32, T = 2*radius + 1, tap t at offset t - radius."""
+    Returns (T, H, W) float32, T = 2*radius + 1, tap t at offset t - radius.
+    On axis 0, img may hold frame rows row0 .. row0 + H - 1 of an
+    h_glob-row frame (default: the whole frame): the distance term clamps
+    the neighbour's FRAME row, so a row shard's weights equal the whole
+    frame's where its taps stay inside img."""
     inv_c = float(np.float32(1.0) / np.float32(gamma_c))
     inv_p = float(np.float32(1.0) / np.float32(gamma_p))
     p = img.movedim(-1, 0) * 255.0                           # (3, H, W)
     n = p.shape[1 + axis]
     ext = edge_pad(p, radius, radius, 1 + axis)
-    coords = torch.arange(n, device=img.device)
+    if axis == 0:
+        coords = torch.arange(n, device=img.device) + row0
+        last = (n if h_glob is None else h_glob) - 1
+    else:
+        coords, last = torch.arange(n, device=img.device), n - 1
     weights = []
     for t in range(2 * radius + 1):
         q = ext.narrow(1 + axis, t, n)
         a = (p - q).abs()
         c_diff = ((a[0] + a[1]) + a[2]) * inv_c
-        clamped = (coords + (t - radius)).clamp(0, n - 1)
+        clamped = (coords + (t - radius)).clamp(0, last)
         dist = (coords - clamped).abs().to(torch.float32) * inv_p
         dist2d = dist[:, None] if axis == 0 else dist[None, :]
         weights.append(torch.exp(-c_diff - dist2d))

@@ -133,25 +133,27 @@ def _tail_and_merge(d1, xs, mc1, mc2, md, base, b0, penalty_scale,
     return d, (c2 - c1) / c2
 
 
-def _two_min_plain(cost, pen_scale=None, pen_center=None, big: float = 1e5):
-    """Plain version of kernel K3: two_min_scan of cost + sc*|ct - d|."""
+def _two_min_plain(cost, pen_scale=None, pen_center=None, big: float = 1e5,
+                   d0: int = 0):
+    """Plain version of kernel K3: two_min_scan of cost + sc*|ct - d|, d
+    the disparity d0 + k of plane k (d1 stays the plane index k)."""
     if pen_scale is None:
         return two_min_scan(cost, big=big)
-    ds = torch.arange(cost.shape[0], dtype=cost.dtype,
-                      device=cost.device)[:, None, None]
+    ds = (torch.arange(cost.shape[0], device=cost.device) + d0).to(
+        cost.dtype)[:, None, None]
     pen = pen_scale[None] * (pen_center[None] - ds).abs()
     return two_min_scan(cost, penalty=pen, big=big)
 
 
 def _two_min(cost, pen_scale=None, pen_center=None, big: float = 1e5,
-             kernels: str = "auto"):
+             kernels: str = "auto", d0: int = 0):
     from ..kernels import use_kernels
 
     if use_kernels(kernels, cost):
         from ..kernels.wta_gather import two_min
 
-        return two_min(cost, pen_scale, pen_center, big)
-    return _two_min_plain(cost, pen_scale, pen_center, big)
+        return two_min(cost, pen_scale, pen_center, big, d0)
+    return _two_min_plain(cost, pen_scale, pen_center, big, d0)
 
 
 def wta_fast(cost, big: float = 1e5, kernels: str = "auto") -> WTAResult:

@@ -1,0 +1,50 @@
+"""Tile-aware ops of the sharded pipelines; the port of
+`stereo_matchin_tpu/parallel/ops_tiled.py`.
+
+A row shard runs the plain ops on its halo-padded tile (parallel/halo.py):
+vertical neighbours are rows of the tile (no clamp: the padding holds the
+global clamp-to-edge), and the support weights' distance term uses
+GLOBAL rows, so the reference's clamped-distance quirk lands on the frame
+border, not on the tile border.  Each JAX function is a port op that
+takes the shard's offsets as arguments:
+
+  stack_shift_x_offset  -> ops.shifted_columns(plane, n_local, d0)
+  sad_cost_volume_shard -> ops.sad_cost_volume(l, r, n_local, scale, d0)
+  support_weights_tiled -> support_weights_tiled below:
+                           ops.support_weights anchored at the tile's
+                           frame rows (row0, h_glob), centre rows kept
+  asw_vpass_tiled       -> ops.asw_den_plain + ops.asw_pass_win_plain on
+                           the (Dl, H_loc + 2R, W) tile (K1 and the
+                           windowed K2 on CUDA tensors)
+  asw_hpass             -> ops.asw_pass_plain(axis=2, d0) (K2 h)
+  refine_vpass_tiled    -> ops.refine_pass_v_win on the padded maps
+  median3x3_tiled       -> median3x3_tiled below
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.median import median3x3
+from ..ops.support import support_weights
+
+
+def support_weights_tiled(img_padded: torch.Tensor, radius: int,
+                          gamma_c: float, gamma_p: float, row_start: int,
+                          h_global: int, halo: int) -> torch.Tensor:
+    """Vertical support weights for the CENTRE rows of a halo-padded tile
+    (H_loc + 2*halo, W, 3), halo >= radius; row_start: the global row of
+    the first centre row.  Returns (T, H_loc, W), equal to the whole
+    frame's weights on those rows."""
+    if halo < radius:
+        raise ValueError(f"a halo of {halo} rows cannot serve radius {radius}")
+    w = support_weights(img_padded, radius, gamma_c, gamma_p, 0,
+                        row_start - halo, h_global)
+    return w[:, halo:w.shape[1] - halo].contiguous()
+
+
+def median3x3_tiled(img_padded: torch.Tensor) -> torch.Tensor:
+    """3x3 median of the centre rows of a 1-row halo-padded tile: the
+    plain median of the tile without its first and last rows (whose
+    clamped reads never reach a centre row)."""
+    return median3x3(img_padded)[1:-1].contiguous()

@@ -1,0 +1,161 @@
+"""Disparity-sharded winner-take-all with an exact two-min merge; the port
+of `stereo_matchin_tpu/parallel/wta_sharded.py`.
+
+The cost volume's planes are sharded over the mesh's disp group.  Each
+shard runs the reference's sequential two-minimum tracker
+(asw_wta.cl:33-47) over its own planes -- K3 (`two_min`, with the shard's
+disparity offset d0 for the penalty) on a CUDA tensor -- and the
+per-shard summaries (c1, c2, argmin) are all-gathered and merged in
+global scan order by a tie-exact combine: ties go to the earlier
+disparity, duplicate minima collapse the confidence to zero, values >=
+`big` never update, all as the sequential scan does.
+
+The target view's epipolar probe (the slope-1 bresenham, asw_wta.cl:55-67)
+visits global plane b(i) = d1 + max(0, x-i) - x, which descends through
+the shards as i grows, and the clamped tail (i > x) revisits one plane.
+b(i) is monotone, so each shard's visits form one interval of i: each
+shard replays its interval with a masked sequential loop (plain, as in
+the JAX package) and the segments merge in descending shard order
+(= ascending i).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops.wta import WTAResult
+from ..ops.wta_fast import _two_min
+from .comm import all_gather
+
+
+class TwoMin(NamedTuple):
+    c1: torch.Tensor
+    c2: torch.Tensor
+    d: torch.Tensor     # int32
+
+
+def two_min_combine(a: TwoMin, b: TwoMin) -> TwoMin:
+    """Merge two-min summaries; `a` is EARLIER in scan order (ties -> a)."""
+    take_b = b.c1 < a.c1
+    c1 = torch.where(take_b, b.c1, a.c1)
+    d = torch.where(take_b, b.d, a.d)
+    # Second-smallest of the merged multiset {c1a, c2a, c1b, c2b}.
+    c2 = torch.minimum(torch.minimum(a.c2, b.c2), torch.maximum(a.c1, b.c1))
+    return TwoMin(c1, c2, d)
+
+
+def gather_two_min(s: TwoMin, group) -> list[TwoMin]:
+    """Every disp shard's summary, in shard order: one all-gather of
+    (c1, c2, d) with d's int32 bits carried in a float32 plane."""
+    g = all_gather(torch.stack([s.c1, s.c2, s.d.view(torch.float32)]), group)
+    return [TwoMin(x[0], x[1], x[2].contiguous().view(torch.int32))
+            for x in g]
+
+
+def reference_scan_sharded(cost_local, d0: int, group, pen_scale=None,
+                           pen_center=None, big: float = 1e5,
+                           kernels: str = "auto") -> TwoMin:
+    """Global two-min over a disp-sharded volume.
+
+    cost_local: (Dl, H, W), plane k holding global disparity d0 + k; the
+    optional penalty is pen_scale * |pen_center - d| (K3's).  Returns the
+    global TwoMin, d the GLOBAL disparity."""
+    c1, c2, dl = _two_min(cost_local, pen_scale, pen_center, big, kernels, d0)
+    return merge_reference(gather_two_min(TwoMin(c1, c2, dl + d0), group), big)
+
+
+def merge_reference(parts: list, big: float = 1e5) -> TwoMin:
+    """The shards' reference-scan summaries, in shard order, merged in
+    ascending d (scan order)."""
+    state = parts[0]
+    for part in parts[1:]:
+        state = two_min_combine(state, part)
+    # No plane anywhere beat `big`: the sequential tracker leaves d = 0.
+    return state._replace(d=torch.where(state.c1 < big, state.d, 0))
+
+
+def epipolar_partial(cost_local, d1, d0: int, n_local: int, total_disp: int,
+                     penalty_scale=None, penalty_center=None,
+                     big: float = 1e5) -> TwoMin:
+    """One shard's contiguous segment of the epipolar target scan.
+
+    Replays steps i in [0, total_disp - 1) masked to this shard's planes,
+    keeping the visit order and the duplicate visits (asw_wta.cl:55-67 /
+    asw_wta_ref.cl:40-51, with the penalty term |ref - i|).  d1: (H, W)
+    int32 global disparities."""
+    Dl, H, W = cost_local.shape
+    dev = cost_local.device
+    xs = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    rows = (torch.arange(H, device=dev) * W)[:, None]
+    flat = cost_local.reshape(-1)
+    c1 = torch.full((H, W), big, dtype=cost_local.dtype, device=dev)
+    c2 = c1.clone()
+    best_b = d1.clone()
+    for i in range(total_disp - 1):
+        xq = (xs - i).clamp(min=0)
+        b = d1 + xq - xs                               # global plane
+        bl = b - d0                                    # local plane
+        valid = (i < d1) & (bl >= 0) & (bl < n_local)
+        v = flat[bl.clamp(0, Dl - 1).long() * (H * W) + rows + xq]
+        if penalty_scale is not None:
+            v = v + penalty_scale * (penalty_center - float(i)).abs()
+        v = torch.where(valid, v, torch.inf)
+        upd = v < c1
+        c2 = torch.where(upd, c1, torch.minimum(c2, v))
+        best_b = torch.where(upd, b, best_b)
+        c1 = torch.where(upd, v, c1)
+    return TwoMin(c1, c2, best_b)
+
+
+def target_scan_sharded(cost_local, d1, d0: int, n_local: int,
+                        total_disp: int, group, penalty_scale=None,
+                        penalty_center=None, big: float = 1e5):
+    """Merge the per-shard epipolar segments in ascending-i order, i.e.
+    DESCENDING shard order, seeded with the sequential start (c = big,
+    b = d1).  Returns (d_target int32, conf_target) with (c2 - c1) / c2."""
+    seg = epipolar_partial(cost_local, d1, d0, n_local, total_disp,
+                           penalty_scale, penalty_center, big)
+    return merge_target(gather_two_min(seg, group), d1, big)
+
+
+def merge_target(parts: list, d1, big: float = 1e5):
+    """The shards' epipolar segments, in shard order, merged in descending
+    shard order (ascending i) from the sequential start (c = big, b = d1).
+    Returns (d_target int32, conf_target)."""
+    full = torch.full_like(parts[0].c1, big)
+    state = TwoMin(full, full, d1)
+    for part in reversed(parts):
+        state = two_min_combine(state, part)
+    return state.d, (state.c2 - state.c1) / state.c2
+
+
+def wta_sharded(cost_local, d0: int, n_local: int, total_disp: int, group,
+                big: float = 1e5, kernels: str = "auto") -> WTAResult:
+    """asw_WTA over a disp-sharded volume; every disp shard gets the same
+    maps."""
+    ref = reference_scan_sharded(cost_local, d0, group, big=big,
+                                 kernels=kernels)
+    conf_ref = (ref.c2 - ref.c1) / ref.c2
+    d_t, conf_t = target_scan_sharded(cost_local, ref.d, d0, n_local,
+                                      total_disp, group, big=big)
+    dt = cost_local.dtype
+    return WTAResult(ref.d.to(dt), conf_ref, d_t.to(dt), conf_t)
+
+
+def wta_refined_sharded(cost_local, d0: int, n_local: int, total_disp: int,
+                        group, ref_value, ref_denom, ref_value_t, ref_denom_t,
+                        penalty: float, big: float = 1e5,
+                        kernels: str = "auto") -> WTAResult:
+    """asw_WTA_REF over a disp-sharded volume: the penalty
+    (penalty * den) * |ref - d| on global d."""
+    ref = reference_scan_sharded(cost_local, d0, group, penalty * ref_denom,
+                                 ref_value, big, kernels)
+    conf_ref = (ref.c2 - ref.c1) / ref.c2
+    d_t, conf_t = target_scan_sharded(
+        cost_local, ref.d, d0, n_local, total_disp, group,
+        penalty_scale=penalty * ref_denom_t, penalty_center=ref_value_t,
+        big=big)
+    dt = cost_local.dtype
+    return WTAResult(ref.d.to(dt), conf_ref, d_t.to(dt), conf_t)

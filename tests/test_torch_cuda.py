@@ -619,3 +619,61 @@ def test_asw_batched_through_kernels_equals_single_frames():
     for b, (left, right) in enumerate(pairs):
         for g, w in zip(got, asw.asw_pipeline(left, right, cfg)):
             assert torch.equal(g[b], w)
+
+
+@pytest.mark.parametrize("with_penalty", [False, True])
+@pytest.mark.parametrize("D,H,W,d0", [(9, 24, 40, 3), (15, 37, 53, 60),
+                                      (140, 12, 300, 140)])
+def test_two_min_at_a_disparity_offset_bit_equal_to_plain(D, H, W, d0,
+                                                         with_penalty):
+    """K3 over a disparity shard (plane d holds d0 + d, as the sharded WTA
+    runs it): the penalty sc * |ct - (d0 + d)|, d1 the plane index."""
+    dev = cuda_device()
+    rng = np.random.default_rng(D + d0)
+    cost = torch.from_numpy(rng.integers(0, 30, (D, H, W)).astype(
+        np.float32)).to(dev)
+    cost[:, :2, :3] = 2e5
+    pen = (None, None)
+    if with_penalty:
+        pen = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in
+                    (rng.random((H, W)), rng.random((H, W)) * (d0 + D)))
+    got = _launched("two_min", two_min, cost, *pen, BIG, d0)
+    for g, w in zip(got, _two_min_plain(cost, *pen, BIG, d0)):
+        np.testing.assert_array_equal(n(g), n(w))
+
+
+@pytest.mark.parametrize("mesh", [(1, 2, 1), (1, 1, 2), (2, 1, 1)])
+def test_sharded_pipelines_on_the_card_equal_unsharded(mesh):
+    """Two gloo ranks sharing the card (CUDA tensors staged through the
+    host): both methods' maps bit-equal to the unsharded frames, and the
+    kernels launched per rank and frame (K3 at d0 on the disp shards)."""
+    from stereo_matchin_tpu_torch.parallel.distributed import spawn
+    from stereo_matchin_tpu_torch.parallel.dryrun import Case, sharded_maps
+
+    dev = cuda_device()
+    pairs = [unorm8_pair(np.random.default_rng(s), 48, 64) for s in (1, 2)]
+    left, right = (np.stack([p[k] for p in pairs]) for k in (0, 1))
+    kw = dict(d_max=15, radius=4, arm_len=6, r_iters=2, k_iters=2)
+    cases = [Case("asw", mesh, kw, "p"), Case("cross", mesh, kw, "p")]
+    ranks = spawn(sharded_maps, 2, "gloo", (cases, {"p": (left, right)},
+                                            "cuda"), 300)
+    cfg = TINY_CONFIG.replace(**kw)
+    frames = len(pairs) // mesh[0]
+    for k, model in ((0, asw.asw_pipeline), (1, cross_based.cross_pipeline)):
+        got = ranks[0][k]["maps"]
+        for b in range(len(pairs)):
+            want = model(*(torch.from_numpy(a[b]).to(dev)
+                           for a in (left, right)), cfg)
+            for f, w in want._asdict().items():
+                if f in got:
+                    np.testing.assert_array_equal(got[f][b], n(w), err_msg=f)
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        if k == 0:
+            want.update(asw_den=2 * frames, asw_pass_win=cfg.r_iters * frames,
+                        asw_pass_h=cfg.r_iters * frames,
+                        two_min=(cfg.k_iters + 1) * frames)
+        else:
+            want.update(cross_arms=2 * frames, sad_volume=frames,
+                        oii_pass_h=frames, oii_pass_v=frames, vote_h=frames,
+                        vote_v=frames)
+        assert all(r[k]["launches"] == want for r in ranks)

@@ -181,7 +181,17 @@ def test_importing_the_port_loads_no_jax():
             "stereo_matchin_tpu_torch.bench",
             "stereo_matchin_tpu_torch.eval.metrics",
             "stereo_matchin_tpu_torch.io.groundtruth",
-            "stereo_matchin_tpu_torch.utils", "chip_smoke"]
+            "stereo_matchin_tpu_torch.utils",
+            "stereo_matchin_tpu_torch.parallel",
+            "stereo_matchin_tpu_torch.parallel.mesh",
+            "stereo_matchin_tpu_torch.parallel.comm",
+            "stereo_matchin_tpu_torch.parallel.halo",
+            "stereo_matchin_tpu_torch.parallel.wta_sharded",
+            "stereo_matchin_tpu_torch.parallel.ops_tiled",
+            "stereo_matchin_tpu_torch.parallel.asw_sharded",
+            "stereo_matchin_tpu_torch.parallel.cross_sharded",
+            "stereo_matchin_tpu_torch.parallel.distributed",
+            "stereo_matchin_tpu_torch.parallel.dryrun", "chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

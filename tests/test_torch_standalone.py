@@ -66,6 +66,22 @@ def _check_refusals():
         assert str(got.value) == str(want.value), kw
 
 
+def _check_mesh_config():
+    """MeshConfig: fields, defaults, device count and axis names, and the
+    package's export, as the JAX package's."""
+    assert [(f.name, f.default) for f in dataclasses.fields(
+        tconfig.MeshConfig)] == [(f.name, f.default) for f in
+                                 dataclasses.fields(jconfig.MeshConfig)]
+    for kw in ({}, dict(batch=2, row=2, disp=2), dict(row=4), dict(disp=3)):
+        jm, tm = jconfig.MeshConfig(**kw), tconfig.MeshConfig(**kw)
+        assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
+        assert tm.num_devices == jm.num_devices
+        assert tm.axis_names() == jm.axis_names()
+    import stereo_matchin_tpu_torch as port
+
+    assert port.MeshConfig is tconfig.MeshConfig
+
+
 def _check_registry(tmp_path):
     """The JAX registry's names and files; the port resolves them under
     STEREO_REFERENCE_ROOT only, and refuses a lookup without it."""
@@ -276,6 +292,7 @@ def _check_goldens(tmp_path):
 
 CASES = {"config_reference": _check_reference, "config_tiny": _check_tiny,
          "config_3": _check_config3, "config_refusals": _check_refusals,
+         "mesh_config": _check_mesh_config,
          "registry": _check_registry, "pics_txt": _check_pics_txt,
          "png_round_trip": _check_png, "synthetic_scene": _check_scenes,
          "pfm_round_trip": _check_pfm,

@@ -40,8 +40,9 @@ def _take_first(v, d, c1, c2, best):
     c1[...] = np.where(take, v, c1)
 
 
-def walk_two_min(cost, sc=None, ct=None, big=BIG):
-    """K3's outputs, in numpy f32: each pixel's planes in ascending order."""
+def walk_two_min(cost, sc=None, ct=None, big=BIG, d0=0):
+    """K3's outputs, in numpy f32: each pixel's planes in ascending order,
+    plane d's penalty at disparity d0 + d."""
     D, H, W = cost.shape
     flat = cost.reshape(D, H * W)
     c1 = np.full(H * W, np.inf, F32)
@@ -50,7 +51,7 @@ def walk_two_min(cost, sc=None, ct=None, big=BIG):
     for d in range(D):
         v = flat[d]
         if sc is not None:
-            v = v + sc.reshape(-1) * np.abs(ct.reshape(-1) - F32(d))
+            v = v + sc.reshape(-1) * np.abs(ct.reshape(-1) - F32(d0 + d))
         _take_first(v, d, c1, c2, best)
     anyv = c1 < big
     out = (np.minimum(c1, big), np.where(anyv, np.minimum(c2, big), big),
@@ -205,6 +206,22 @@ def test_two_min_walk_any_depth(D, with_penalty):
     pen = (None, None) if sc is None else (t(sc), t(ct))
     _same(walk_two_min(cost, sc, ct),
           _two_min_plain(t(cost), *pen, big=float(BIG)))
+
+
+@pytest.mark.parametrize("with_penalty", [False, True])
+@pytest.mark.parametrize("d0", [1, 70, 279])
+def test_two_min_walk_at_a_disparity_offset(d0, with_penalty):
+    """K3 over a disparity shard: plane d holds disparity d0 + d, which
+    only the penalty sees; d1 stays the plane index."""
+    D, H, W = 9, 4, 29
+    rng = np.random.default_rng(d0)
+    cost = _volume(rng, D, H, W)
+    sc = rng.uniform(0, 2, (H, W)).astype(F32) if with_penalty else None
+    ct = (rng.integers(0, d0 + D, (H, W)).astype(F32) if with_penalty
+          else None)
+    pen = (None, None) if sc is None else (t(sc), t(ct))
+    _same(walk_two_min(cost, sc, ct, d0=d0),
+          _two_min_plain(t(cost), *pen, big=float(BIG), d0=d0))
 
 
 @pytest.mark.parametrize("sparse", [0, 6, 32])

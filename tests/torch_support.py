@@ -135,8 +135,11 @@ def unorm8_pair(rng, H: int, W: int):
 # D = 45, off the plane chunk where a test forces chunks of 23; d0 = 5;
 # full windows (2L + 1 taps, both arms past L; every case also has windows
 # of one tap at its borders); L = 1, 3 and 25; the
-# vertical pass anchored at row0 > 0 with rows past h_glob.  The vertical
-# pass takes (row0, h_glob), the horizontal one the whole frame.
+# vertical pass anchored at row0 > 0 with rows past h_glob; anchored at
+# row0 < 0 (a sharded tile of the first row shard: rows above the frame,
+# none of them in any window), at L = 5 and at L = 25 with row0 = -(L + 2).
+# The vertical pass takes (row0, h_glob), the horizontal one the whole
+# frame.
 OII_EDGES = {
     "W_off_tiles": (7, 37, 70, 4, 0, 0, None, False),
     "W450": (5, 20, 450, 6, 0, 0, None, False),
@@ -149,6 +152,8 @@ OII_EDGES = {
     "L3": (5, 40, 136, 3, 0, 0, None, False),
     "L25": (4, 70, 200, 25, 3, 0, None, False),
     "anchored_past_h_glob": (7, 40, 64, 5, 0, 350, 375, False),
+    "above_frame": (6, 40, 64, 5, 3, -7, 40, False),
+    "above_frame_L25": (4, 70, 96, 25, 0, -27, 300, False),
 }
 
 
@@ -214,7 +219,9 @@ def sad_inputs(rng, H: int, W: int):
 # (every arm 1); rows anchored at row0 > 0 with rows past h_glob, as the
 # cross wavefront's last band has; a 2L-row strip anchored inside a 375-row
 # frame; L = 1 (no step); ragged tiles of both axes with H odd; the main
-# path's width.  Each runs with the legacy quirk on and off.
+# path's width; rows starting above the frame (row0 = -(L + 2), a sharded
+# tile of the first row shard), at L = 6 and L = 25.  Each runs with the
+# legacy quirk on and off.
 ARMS_EDGES = {
     "H_under_L": (10, 80, 25, 0, None, "scene"),
     "W_under_L": (40, 12, 25, 0, None, "scene"),
@@ -225,6 +232,8 @@ ARMS_EDGES = {
     "L1": (9, 50, 1, 0, None, "scene"),
     "ragged_tiles": (33, 300, 6, 0, None, "scene"),
     "main_width": (20, 384, 25, 0, None, "scene"),
+    "above_frame": (40, 64, 6, -8, 40, "scene"),
+    "above_frame_L25": (70, 96, 25, -27, 300, "scene"),
 }
 
 
