@@ -31,14 +31,21 @@ pipelines (parallel/) in one spawn of 4 gloo ranks sharing the card
 (meshes (1,2,2), (1,4,1), (1,1,4) and (2,2,1) at REFERENCE_CONFIG on
 288x384, then config 3 on (1,2,2); both methods bit-equal to the
 unsharded frames of phases 4, 8, 15 and 16, every rank's launches
-asserted) and once more through one NCCL rank.  Before the last line it
+asserted) and once more through one NCCL rank.  Phase 20 runs `run
+--method both` and `run --method cross` over 8 seeded 375x450 scenes,
+decoding ahead (io/loader.py): every file byte-equal to those of `run`'s
+own per-pair work on the pairs decoded inline and the launches asserted,
+timed against that inline loop beside PIL's encode and decode times; and
+`ops.asw_aggregate_2d` on the card against the CPU (0 ulp, 64x96 crop),
+timed with its peak memory at REFERENCE_CONFIG.  Before the last line it
 prints one JSON object with each kernel's launches on its path (and per
-rank on the sharded path at config 3), largest error against
-its plain version, time (`ms`: eager calls, by CUDA events), device time
-(`device_ms`: the same calls replayed from a CUDA graph, without the host's
-dispatch), plain time (eager calls) and least time (`bound_ms`, from the
-bytes and operations of the timed call at the H100's HBM and float32
-peaks).  Any failed check raises; the last line of a passing run is
+rank on the sharded path at config 3), largest error against its plain
+version, time (`ms`: eager calls, by CUDA events), device time
+(`device_ms`: the same calls replayed from a CUDA graph, without the
+host's dispatch), plain time (eager calls) and least time (`bound_ms`,
+from the bytes and operations of the timed call at the H100's HBM and
+float32 peaks).  Any failed check raises; the last line of a passing run
+is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -1771,6 +1778,244 @@ def sharded_phase(cfg, kernels, left, right, refs, c3_refs, smi):
     return {"asw": recs[-3][0]["launches"], "cross": recs[-1][0]["launches"]}
 
 
+# Phase 20: `run` over seeded synthetic scenes at the reference's 375x450
+# size, decoding ahead (io/loader.py).
+RUN_SCENES = 8
+RUN_HW = (375, 450)
+
+
+def write_scenes(root, cfg):
+    """RUN_SCENES seeded synthetic scenes as PNG pairs root/scene<k>/imL.png
+    and imR.png, and one pics.txt naming them all.  Returns the pics.txt
+    path and its pairs."""
+    from stereo_matchin_tpu_torch.eval import synthetic_scene
+    from stereo_matchin_tpu_torch.io import parse_pics_txt, png
+
+    lines = []
+    for k in range(RUN_SCENES):
+        left, right, _, _ = synthetic_scene(np.random.default_rng(200 + k),
+                                            *RUN_HW, cfg.d_max)
+        d = root / f"scene{k}"
+        d.mkdir()
+        png.write_rgb(d / "imL.png", left)
+        png.write_rgb(d / "imR.png", right)
+        lines += [str(d / "imL.png"), str(d / "imR.png")]
+    pics = root / "pics.txt"
+    pics.write_text("\n".join(lines) + "\n")
+    return pics, parse_pics_txt(str(pics))
+
+
+def inline_run(argv, pairs):
+    """`run`'s own per-pair work (`__main__._run_pair`, on the arguments
+    `run` parses from argv) with each pair decoded inline (`_load`) just
+    before it, in place of the loader."""
+    import torch
+
+    from stereo_matchin_tpu_torch.__main__ import (_config_from_args, _load,
+                                                   _parser, _run_pair)
+
+    args = _parser().parse_args(argv)
+    cfg, dev = _config_from_args(args), torch.device(args.device)
+    for pair in pairs:
+        _run_pair(args, cfg, dev, pair, *_load(pair, dev))
+    return 0
+
+
+def artifacts(out):
+    """The bytes of every file under out/, by its path relative to out."""
+    return {str(f.relative_to(out)): f.read_bytes()
+            for f in sorted(out.rglob("*")) if f.is_file()}
+
+
+def decode_times(pairs):
+    """Host ms of PIL decoding: per pair (both views, one thread; median
+    over the pairs), and all the views once in one thread and once split
+    over two threads, the least of two turns each (two threads take about
+    half the time only where PIL releases the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from stereo_matchin_tpu_torch.io import png
+
+    per_pair = []
+    for pair in pairs:
+        t0 = time.perf_counter()
+        png.read_rgb(pair.left), png.read_rgb(pair.right)
+        per_pair.append((time.perf_counter() - t0) * 1e3)
+    views = [p for pair in pairs for p in (pair.left, pair.right)]
+
+    def decode_all(paths):
+        for p in paths:
+            png.read_rgb(p)
+
+    one, two = [], []
+    with ThreadPoolExecutor(2) as pool:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            decode_all(views)
+            one.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            for f in [pool.submit(decode_all, views[k::2]) for k in (0, 1)]:
+                f.result()
+            two.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(per_pair), min(one), min(two)
+
+
+def encode_ms(out, pairs):
+    """Host ms of PIL encoding one pair's artifacts, as read back from
+    out/<pair>/ (the maps already on the host), median over the pairs."""
+    from stereo_matchin_tpu_torch.io import png
+
+    per_pair = []
+    for pair in pairs:
+        files = sorted((out / pair.name).iterdir())
+        imgs = [np.round(png.read_rgb(f) * 255).astype(np.uint8)
+                for f in files]
+        t0 = time.perf_counter()
+        for f, img in zip(files, imgs):
+            png.write_rgb(f, img)
+        per_pair.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(per_pair)
+
+
+def run_turns(tmp, pics, pairs, cfg, kernels, method, turns):
+    """`run --method <method>` against the inline loop in turns (one pair
+    inline as an untimed warm-up, then inline, run, run, inline, `turns`
+    times): every turn's files byte-equal to the first inline turn's, and
+    every run's launches one frame of each of its methods a pair.  Returns
+    the seconds per pair of each turn, per mode, and the first inline
+    turn's directory."""
+    import contextlib
+    import io
+
+    import torch
+
+    from stereo_matchin_tpu_torch.__main__ import main as cli
+
+    n = len(pairs)
+    flags = [a for f in ("d_max", "radius", "arm_len", "r_iters", "k_iters")
+             for a in (f"--{f}", str(getattr(cfg, f)))]
+
+    def argv(out):
+        return ["run", "--pics", str(pics), "--out", str(out), "--method",
+                method, "--device", "cuda"] + flags
+
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    if method in ("both", "asw"):
+        want = expected_asw_launches(cfg, 1, "whole", kernels)
+    if method in ("both", "cross"):
+        for name, v in expected_cross_launches(1, kernels).items():
+            want[name] += v
+    with contextlib.redirect_stdout(io.StringIO()):
+        inline_run(argv(tmp / f"{method}_warm"), pairs[:1])
+    secs = {"inline": [], "run": []}
+    first = None
+    for turn, mode in enumerate(("inline", "run", "run", "inline") * turns):
+        out = tmp / f"{method}_{turn}"
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = (inline_run(argv(out), pairs) if mode == "inline"
+                  else cli(argv(out)))
+        torch.cuda.synchronize()
+        secs[mode].append((time.perf_counter() - t0) / n)
+        if rc != 0:
+            raise AssertionError(f"{mode} --method {method} exited with {rc}")
+        if first is None:
+            first, files = out, artifacts(out)
+            continue
+        if mode == "run" and dict(kernels.LAUNCHES) != {
+                k: v * n for k, v in want.items()}:
+            raise AssertionError(f"run --method {method}: launches "
+                                 f"{dict(kernels.LAUNCHES)}, want {n} x "
+                                 f"{want}")
+        got = artifacts(out)
+        if got != files:
+            bad = sorted(set(got) ^ set(files)) or sorted(
+                k for k in files if got[k] != files[k])
+            raise AssertionError(f"{mode} --method {method}, turn {turn}: "
+                                 f"{bad} differ from the first inline turn")
+    print(f"  run --method {method}: {len(files)} files of {n} pairs, each "
+          f"byte-equal over {4 * turns - 1} turns to the first inline turn "
+          f"(`_run_pair` on pairs decoded by `_load`); launches per pair "
+          f"as expected: {want}")
+    return secs, first
+
+
+def run_phase(cfg, kernels, smi):
+    """Phase 20 (a): `run` on the card over RUN_SCENES scenes, decoding
+    ahead: --method both (the default) and --method cross (a cheap frame,
+    where decoding is a large share of a pair); the files against the
+    inline loop's, the launches, the seconds per pair beside the inline
+    loop's, and PIL's encode and decode times."""
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = pathlib.Path(tmp)
+        pics, pairs = write_scenes(tmp, cfg)
+        secs, encode = {}, {}
+        for method, turns in (("both", 1), ("cross", 2)):
+            secs[method], first = run_turns(tmp, pics, pairs, cfg, kernels,
+                                            method, turns)
+            encode[method] = encode_ms(first, pairs)
+        decode, one, two = decode_times(pairs)
+    fmt = lambda v: ", ".join(f"{x:.4f}" for x in v)
+    for method, v in secs.items():
+        print(f"  --method {method}, {len(pairs)} pairs of {RUN_HW[0]}x"
+              f"{RUN_HW[1]}: run (decode ahead) {fmt(v['run'])} s per pair; "
+              f"inline loop (decode, pipelines, write) {fmt(v['inline'])} s "
+              f"per pair; PIL encode of its {3 if method == 'cross' else 6} "
+              f"PNGs {encode[method]:.2f} ms a pair; {smi}")
+    print(f"  PIL decode of one pair (two views) on the host: {decode:.2f} ms "
+          f"(median of {len(pairs)}); all {2 * len(pairs)} views {one:.1f} ms "
+          f"in one thread, {two:.1f} ms over two threads ({one / two:.2f}x)")
+    return {"s_per_pair": secs, "encode_ms_per_pair": encode,
+            "decode_ms_per_pair": decode, "decode_1_thread_ms": one,
+            "decode_2_threads_ms": two}
+
+
+def asw2d_phase(left, right, cfg, smi):
+    """Phase 20 (b): ops.asw_aggregate_2d on the card against the CPU at 0
+    ulp on a 64x96 crop (D = 16, radius 16), then the full REFERENCE_CONFIG
+    call at 288x384 timed (host clock around synchronized calls, one cold
+    and two warm) with its peak device memory."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.models import asw
+
+    def inputs(l, r, D):
+        w = asw.asw_weights(l, r, cfg)
+        return (ops.sad_cost_volume(l, r, D, 255.0), w.wv_l, w.wv_r, w.wh_l,
+                w.wh_r)
+
+    R = cfg.radius
+    crop = inputs(left[:64, :96].contiguous(), right[:64, :96].contiguous(),
+                  16)
+    got = ops.asw_aggregate_2d(*crop, R)
+    want = ops.asw_aggregate_2d(*(a.cpu() for a in crop), R)
+    ulp = max_ulp(got.cpu(), want)
+    print(f"  64x96 crop, D=16, radius {R}: card against CPU max ulp {ulp}")
+    if ulp or not torch.isfinite(got).all():
+        raise AssertionError("asw_aggregate_2d on the card differs from the "
+                             "CPU")
+    full = inputs(left, right, cfg.num_disp)
+    del got, want, crop
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = [timed(lambda: ops.asw_aggregate_2d(*full, R))[1] for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    out = ops.asw_aggregate_2d(*full, R)
+    if out.shape != full[0].shape or not torch.isfinite(out).all():
+        raise AssertionError(f"asw_aggregate_2d: bad output "
+                             f"{tuple(out.shape)}")
+    H, W = left.shape[:2]
+    print(f"  {H}x{W}, D={cfg.num_disp}, radius {R}: "
+          f"{', '.join(f'{x:.2f}' for x in ms)} ms (cold, warm, warm); peak "
+          f"{(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB of "
+          f"its inputs and the live tensors; {smi}")
+    return {"ms": ms, "peak_gb_above_inputs": (peak - base) / 1e9}
+
+
 def codes(img):
     from stereo_matchin_tpu_torch import ops
 
@@ -2039,6 +2284,17 @@ def main() -> int:
          "cross": {f: getattr(cross_k, f) for f in SHARDED_MAPS["cross"]}},
         c3_whole, smi)
     del c3_whole
+
+    phase("20. run CLI (--method both, --method cross) decoding ahead over "
+          "8 synthetic 375x450 scenes, against the inline loop; "
+          "asw_aggregate_2d on the card against the CPU, and timed at "
+          "REFERENCE_CONFIG")
+    print(" (a) run, decode ahead")
+    run_report = run_phase(cfg, kernels, smi)
+    print(" (b) asw_aggregate_2d")
+    asw2d_report = asw2d_phase(left, right, cfg, smi)
+    print(json.dumps({"run_decode_ahead": run_report,
+                      "asw_aggregate_2d": asw2d_report, "card": smi}))
 
     path_launches = {
         "asw": launches, "cross": cross_launches,

@@ -20,9 +20,12 @@ port's `io.png`: for the cross-based method cross_based_initial.png,
 cross_based_disparity.png and median.png; for the ASW method
 asw_disparity.png, asw_consistency_pre-reff.png and
 asw_consistency_post-reff.png.  --method both (the default) writes all
-six.  --bands N > 1 runs the row-band drivers (models/tiled.py: the
-wavefront strip carry where the band layout allows, halo bands otherwise)
-and, as the JAX CLI does, writes the disparity maps only; --bands 0 picks
+six.  It decodes the next pairs on a worker thread while the device
+computes the current one (io/loader.py PairLoader, two pairs ahead),
+and copies each pair to the device as it comes.
+--bands N > 1 runs the row-band drivers (models/tiled.py: the wavefront
+strip carry where the band layout allows, halo bands otherwise) and, as
+the JAX CLI does, writes the disparity maps only; --bands 0 picks
 the band count from the card's memory (models.tiled.auto_bands; one band
 on the CPU) and prints it.
 
@@ -38,6 +41,7 @@ no data on disk; it computes nothing on a device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -70,62 +74,78 @@ def _resolve_pairs(args):
         raise SystemExit(f"stereo_matchin_tpu_torch: {e}") from None
 
 
-def _load(pair, device):
+def _to_device(images, device):
     import torch
 
+    return tuple(torch.from_numpy(a).to(device) for a in images)
+
+
+def _load(pair, device):
     from .io import load_pair
 
-    return tuple(torch.from_numpy(a).to(device) for a in load_pair(pair))
+    return _to_device(load_pair(pair), device)
 
 
 def cmd_run(args) -> int:
     import torch
 
-    from .io import png, safe_pair_name
-    from .models import asw, cross_based, tiled
+    from .io import PairLoader
 
     cfg = _config_from_args(args)
     device = torch.device(args.device)
     if args.bands < 0:
         raise SystemExit(f"--bands must be >= 0, got {args.bands}")
-    for pair in _resolve_pairs(args):
-        out_dir = os.path.join(args.out, safe_pair_name(pair.name))
-        os.makedirs(out_dir, exist_ok=True)
-        left, right = _load(pair, device)
-        bands = args.bands
-        if bands == 0:
-            bands = tiled.auto_bands(left.shape, cfg, device=device)
-            print(f"{pair.name}: auto bands -> {bands}")
-        t0 = time.perf_counter()
-        if args.method in ("both", "cross"):
-            if bands > 1:
-                initial, final = tiled.cross_pipeline_tiled(left, right, cfg,
-                                                            bands)
-            else:
-                res = cross_based.cross_pipeline(left, right, cfg)
-                initial, final = res.initial, res.final
-                png.write_rgb(os.path.join(out_dir, "median.png"),
-                              res.median_left.cpu().numpy())
-            png.write_gray(os.path.join(out_dir, "cross_based_initial.png"),
-                           initial.cpu().numpy())
-            png.write_gray(os.path.join(out_dir, "cross_based_disparity.png"),
-                           final.cpu().numpy())
-        if args.method in ("both", "asw") and bands > 1:
-            disparity, _ = tiled.asw_pipeline_tiled(left, right, cfg, bands)
-            png.write_gray(os.path.join(out_dir, "asw_disparity.png"),
-                           disparity.cpu().numpy())
-        elif args.method in ("both", "asw"):
-            res = asw.asw_pipeline(left, right, cfg)
-            png.write_gray(os.path.join(out_dir, "asw_disparity.png"),
-                           res.disparity.cpu().numpy())
-            png.write_rgb(os.path.join(out_dir, "asw_consistency_pre-reff.png"),
-                          res.consistency_pre.cpu().numpy())
-            png.write_rgb(os.path.join(out_dir, "asw_consistency_post-reff.png"),
-                          res.consistency_post.cpu().numpy())
-        print(f"{pair.name}: artifacts in {out_dir} on {device} "
-              f"({time.perf_counter() - t0:.2f}s; a first CUDA run includes "
-              f"the kernel build)")
+    pairs = _resolve_pairs(args)
+    # Decode the next pairs on a worker thread while the device computes
+    # the current one (the reference decodes synchronously on the host
+    # thread, main.cpp:184-186).
+    loader = PairLoader([(p.left, p.right) for p in pairs])
+    with contextlib.closing(iter(loader)) as decoded:
+        for pair, images in zip(pairs, decoded):
+            _run_pair(args, cfg, device, pair, *_to_device(images, device))
     return 0
+
+
+def _run_pair(args, cfg, device, pair, left, right) -> None:
+    """`run` on one decoded pair: the pipelines and the pair's artifacts."""
+    from .io import png, safe_pair_name
+    from .models import asw, cross_based, tiled
+
+    out_dir = os.path.join(args.out, safe_pair_name(pair.name))
+    os.makedirs(out_dir, exist_ok=True)
+    bands = args.bands
+    if bands == 0:
+        bands = tiled.auto_bands(left.shape, cfg, device=device)
+        print(f"{pair.name}: auto bands -> {bands}")
+    t0 = time.perf_counter()
+    if args.method in ("both", "cross"):
+        if bands > 1:
+            initial, final = tiled.cross_pipeline_tiled(left, right, cfg,
+                                                        bands)
+        else:
+            res = cross_based.cross_pipeline(left, right, cfg)
+            initial, final = res.initial, res.final
+            png.write_rgb(os.path.join(out_dir, "median.png"),
+                          res.median_left.cpu().numpy())
+        png.write_gray(os.path.join(out_dir, "cross_based_initial.png"),
+                       initial.cpu().numpy())
+        png.write_gray(os.path.join(out_dir, "cross_based_disparity.png"),
+                       final.cpu().numpy())
+    if args.method in ("both", "asw") and bands > 1:
+        disparity, _ = tiled.asw_pipeline_tiled(left, right, cfg, bands)
+        png.write_gray(os.path.join(out_dir, "asw_disparity.png"),
+                       disparity.cpu().numpy())
+    elif args.method in ("both", "asw"):
+        res = asw.asw_pipeline(left, right, cfg)
+        png.write_gray(os.path.join(out_dir, "asw_disparity.png"),
+                       res.disparity.cpu().numpy())
+        png.write_rgb(os.path.join(out_dir, "asw_consistency_pre-reff.png"),
+                      res.consistency_pre.cpu().numpy())
+        png.write_rgb(os.path.join(out_dir, "asw_consistency_post-reff.png"),
+                      res.consistency_post.cpu().numpy())
+    print(f"{pair.name}: artifacts in {out_dir} on {device} "
+          f"({time.perf_counter() - t0:.2f}s; a first CUDA run includes "
+          f"the kernel build)")
 
 
 def cmd_bench(args) -> int:
@@ -232,7 +252,7 @@ def cmd_synth(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="stereo_matchin_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -297,8 +317,11 @@ def main(argv=None) -> int:
                          help="scene's maximum disparity in pixels")
     p_synth.add_argument("--seed", type=int, default=0)
     p_synth.set_defaults(fn=cmd_synth)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
     if getattr(args, "device", "").startswith("cuda"):
         import torch
 

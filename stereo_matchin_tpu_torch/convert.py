@@ -18,12 +18,13 @@ from .models.asw import ASWWeights
 
 
 def weights_from_jax(strips: Mapping[str, np.ndarray],
-                     device: str | torch.device = "cpu") -> ASWWeights:
+                     device: str | torch.device = "cuda") -> ASWWeights:
     """strips: numpy arrays keyed by the ASWWeights field names — the
     outputs of `stereo_matchin_tpu.ops.support_weights` (wv_*, wh_*) and
     `ops.refinement_weights` (rv_*, rh_*), each (T, H, W) float32.
 
-    Returns ASWWeights on `device`, values copied bit for bit."""
+    Returns ASWWeights on `device` (the card unless the caller names
+    another), values copied bit for bit."""
     missing = set(ASWWeights._fields) - set(strips)
     extra = set(strips) - set(ASWWeights._fields)
     if missing or extra:

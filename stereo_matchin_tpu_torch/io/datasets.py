@@ -65,6 +65,9 @@ class _Registry(Mapping):
 
 REGISTRY = _Registry()
 
+# The pairs the reference benchmarks (its pics.txt), without `sukub`.
+BENCH_PAIRS = ["tsukuba", "art", "teddy", "cones", "laundry"]
+
 
 def safe_pair_name(name: str) -> str:
     """Reduce a pair name to one safe path component ('', '.' and '..'

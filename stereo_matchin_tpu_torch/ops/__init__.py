@@ -9,6 +9,7 @@ the hand-written kernels of `stereo_matchin_tpu_torch.kernels`.
 
 from .aggregation import (asw_aggregate, asw_aggregate_pass, asw_den_plain,
                           asw_levels, asw_pass_plain, asw_pass_win_plain)
+from .asw2d import asw_aggregate_2d
 from .common import (disparity_to_image, edge_pad, image_from_q, shift_axis,
                      to_unit, unorm8_code, unorm8_level)
 from .consistency import ConsistencyResult, consistency, red_diagnostic
@@ -28,6 +29,7 @@ __all__ = [
     "ConsistencyResult",
     "WTAResult",
     "asw_aggregate",
+    "asw_aggregate_2d",
     "asw_aggregate_pass",
     "asw_den_plain",
     "asw_levels",

@@ -66,7 +66,7 @@ def _sync(dev):
 
 
 def sharded_maps(rank: int, cases: list, pairs: dict,
-                 device_type: str = "cpu", runs: int = 1) -> list:
+                 device_type: str = "cuda", runs: int = 1) -> list:
     """Rank function: every case on a mesh of all ranks, `runs` frames
     each.  Per case, a dict with this rank's `launches` (kernels.LAUNCHES
     over one frame), `ms` (each frame, barrier to barrier), `peak` (max
@@ -107,7 +107,7 @@ def sharded_maps(rank: int, cases: list, pairs: dict,
 
 
 def halo_tiles(rank: int, x: np.ndarray, mesh: tuple, halo: int, axis: int,
-               device_type: str = "cpu"):
+               device_type: str = "cuda"):
     """Rank function: this rank's strip of x (split along `axis` over the
     mesh's row shards) after exchange_halo with its row neighbours, on
     its device.  Returns (row coordinate, padded strip as numpy)."""

@@ -51,8 +51,8 @@ def test_debug_codes_equal_jax_on_jax_weights(kw):
     want = jasw.asw_pipeline_debug(jnp.asarray(left), jnp.asarray(right),
                                    jcfg)
     got = tasw.asw_pipeline_debug_from_weights(
-        t(left), t(right), weights_from_jax(jax_strips(left, right, jcfg)),
-        cfg)
+        t(left), t(right),
+        weights_from_jax(jax_strips(left, right, jcfg), "cpu"), cfg)
     H, W, r, k = 48, 64, cfg.r_iters, cfg.k_iters
     assert got.aggr_wta_left.shape == (r, H, W)
     assert got.refine_wta_right.shape == (k, H, W)

@@ -125,7 +125,7 @@ def test_routing_and_refusals(pair):
 def jax_weights(monkeypatch):
     """Every band's asw_weights returns the JAX strips of its slice."""
     def from_jax(left, right, cfg):
-        return weights_from_jax(jax_strips(n(left), n(right), cfg))
+        return weights_from_jax(jax_strips(n(left), n(right), cfg), "cpu")
 
     monkeypatch.setattr(tasw, "asw_weights", from_jax)
 

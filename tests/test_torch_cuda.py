@@ -17,7 +17,7 @@ import torch
 
 from stereo_matchin_tpu_torch import kernels
 from stereo_matchin_tpu_torch import ops as tops
-from stereo_matchin_tpu_torch.config import TINY_CONFIG
+from stereo_matchin_tpu_torch.config import TINY_CONFIG, StereoConfig
 from stereo_matchin_tpu_torch.eval import synthetic_scene
 from stereo_matchin_tpu_torch.kernels.asw_aggregation import (asw_den, asw_pass,
                                                               asw_pass_win)
@@ -677,3 +677,90 @@ def test_sharded_pipelines_on_the_card_equal_unsharded(mesh):
                         oii_pass_h=frames, oii_pass_v=frames, vote_h=frames,
                         vote_v=frames)
         assert all(r[k]["launches"] == want for r in ranks)
+
+
+def _png_pairs(root, count, H, W):
+    """`count` seeded UNORM8 PNG pairs under root/pair<k>/, as StereoPairs."""
+    from stereo_matchin_tpu_torch.io import StereoPair, png
+
+    pairs = []
+    for k in range(count):
+        left, right = unorm8_pair(np.random.default_rng(100 + k), H, W)
+        d = root / f"pair{k}"
+        d.mkdir()
+        png.write_rgb(d / "l.png", left)
+        png.write_rgb(d / "r.png", right)
+        pairs.append(StereoPair(f"pair{k}", str(d / "l.png"),
+                                str(d / "r.png")))
+    return pairs
+
+
+def test_run_decode_path_on_the_card_equals_inline_decode(tmp_path):
+    """24 pairs through `run`'s decode path (the loader's host arrays,
+    copied to the card as `cmd_run` copies them) while the card is busy
+    with a ~ms spin a pair: every tensor equals the pair decoded inline
+    (`_load`)."""
+    from stereo_matchin_tpu_torch.__main__ import _load, _to_device
+    from stereo_matchin_tpu_torch.io import PairLoader
+
+    dev = cuda_device()
+    pairs = _png_pairs(tmp_path, 24, 96, 128)
+    got = []
+    for images in PairLoader([(p.left, p.right) for p in pairs]):
+        left, right = _to_device(images, dev)
+        assert left.device == right.device == dev
+        got.append((left, right))
+        torch.cuda._sleep(2_000_000)
+    torch.cuda.synchronize()
+    assert len(got) == len(pairs)
+    for pair, (left, right) in zip(pairs, got):
+        want = _load(pair, dev)
+        assert torch.equal(left, want[0]) and torch.equal(right, want[1]), \
+            pair.name
+
+
+def test_run_on_the_card_writes_the_pipelines_maps(tmp_path):
+    """`run --method both` on the card over three pairs (decoded ahead):
+    the maps of the pipelines on the pairs decoded inline."""
+    from stereo_matchin_tpu_torch.__main__ import _load, main
+    from stereo_matchin_tpu_torch.io import png
+
+    dev = cuda_device()
+    pairs = _png_pairs(tmp_path, 3, 48, 64)
+    pics = tmp_path / "pics.txt"
+    pics.write_text("".join(f"{p.left}\n{p.right}\n" for p in pairs))
+    kw = dict(d_max=15, radius=4, arm_len=6, r_iters=2, k_iters=2)
+    flags = [a for f, v in kw.items() for a in (f"--{f}", str(v))]
+    out = tmp_path / "out"
+    assert main(["run", "--pics", str(pics), "--out", str(out),
+                 "--device", "cuda"] + flags) == 0
+    cfg = StereoConfig(**kw)
+    for pair in pairs:
+        left, right = _load(pair, dev)
+        cross = cross_based.cross_pipeline(left, right, cfg)
+        res = asw.asw_pipeline(left, right, cfg)
+        d = out / pair.name
+        for name, img in (("cross_based_initial.png", cross.initial),
+                          ("cross_based_disparity.png", cross.final),
+                          ("asw_disparity.png", res.disparity)):
+            got = torch.from_numpy(png.read_gray(str(d / name)))
+            assert torch.equal(tops.unorm8_code(got),
+                               tops.unorm8_code(img).cpu()), name
+        np.testing.assert_array_equal(png.read_rgb(str(d / "median.png")),
+                                      n(cross.median_left))
+
+
+@pytest.mark.parametrize("H,W,D,radius", [(12, 16, 9, 3), (40, 64, 16, 16)])
+def test_asw_aggregate_2d_on_the_card_equals_the_cpu(H, W, D, radius):
+    """Plain torch ops on the card round each operation as the CPU does
+    (the division by T included: a divisor tensor, not a Python number)."""
+    dev = cuda_device()
+    left, right = (torch.from_numpy(a) for a in
+                   unorm8_pair(np.random.default_rng(H + D), H, W))
+    args = [tops.sad_cost_volume(left, right, D, 255.0)]
+    args += [tops.support_weights(img, radius, 30.91, 28.21, axis)
+             for axis in (0, 1) for img in (left, right)]
+    want = tops.asw_aggregate_2d(*args, radius)
+    got = tops.asw_aggregate_2d(*(a.to(dev) for a in args), radius)
+    assert got.device == dev
+    assert max_ulp(got, want) == 0

@@ -18,6 +18,8 @@ Tolerances, and why:
 from __future__ import annotations
 
 import ast
+import importlib
+import inspect
 import io
 import pathlib
 import re
@@ -130,9 +132,10 @@ def test_shift_axis_matches_jax(shift, axis):
 # --- structure: no jax, no division by d_max --------------------------------
 
 _DIV_RE = re.compile(r"/\s*\(?\s*(cfg\s*\.\s*)?d_max\b")
-# Roots the port may not import: jax, and the JAX package itself (the port
-# keeps its own copies of its config, io and eval modules).
-_FORBIDDEN = ("jax", "jaxlib", "stereo_matchin_tpu")
+# Roots the port may not import: jax, the JAX package itself and the JAX
+# engine's native runtime (the port keeps its own copies of its config, io,
+# loader and eval modules).
+_FORBIDDEN = ("jax", "jaxlib", "stereo_matchin_tpu", "runtime")
 
 
 def _port_sources():
@@ -191,14 +194,57 @@ def test_importing_the_port_loads_no_jax():
             "stereo_matchin_tpu_torch.parallel.asw_sharded",
             "stereo_matchin_tpu_torch.parallel.cross_sharded",
             "stereo_matchin_tpu_torch.parallel.distributed",
-            "stereo_matchin_tpu_torch.parallel.dryrun", "chip_smoke"]
+            "stereo_matchin_tpu_torch.parallel.dryrun",
+            "stereo_matchin_tpu_torch.io.loader",
+            "stereo_matchin_tpu_torch.ops.asw2d", "chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'stereo_matchin_tpu'))\n"
+            f"{_FORBIDDEN!r})\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+# The port's public functions that take a device, and the parameter: each
+# computes on the card unless the caller names another device.
+_DEVICE_PARAMS = [
+    ("convert", "weights_from_jax", "device"),
+    ("parallel.dryrun", "sharded_maps", "device_type"),
+    ("parallel.dryrun", "halo_tiles", "device_type"),
+    ("parallel.dryrun", "dryrun_multichip", "device_type"),
+    ("parallel.mesh", "rank_device", "device_type"),
+    ("parallel.mesh", "build_mesh", "device_type"),
+    ("bench.harness", "run_benchmark", "device"),
+    ("models.tiled", "auto_bands", "device")]
+
+
+@pytest.mark.parametrize("module,name,param", _DEVICE_PARAMS,
+                         ids=[f[1] for f in _DEVICE_PARAMS])
+def test_entry_point_defaults_to_the_card(module, name, param):
+    fn = getattr(importlib.import_module(f"stereo_matchin_tpu_torch.{module}"),
+                 name)
+    assert inspect.signature(fn).parameters[param].default == "cuda"
+
+
+def test_no_function_of_the_port_defaults_to_the_cpu():
+    """No parameter default anywhere in the port is "cpu" or
+    torch.device("cpu")."""
+    def is_cpu(node):
+        if isinstance(node, ast.Call) and node.args:
+            node = node.args[0]
+        return isinstance(node, ast.Constant) and node.value == "cpu"
+
+    offenders = []
+    for path in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+                for d in node.args.defaults + node.args.kw_defaults:
+                    if d is not None and is_cpu(d):
+                        offenders.append(f"{path.relative_to(REPO)}:"
+                                         f"{d.lineno}")
+    assert not offenders, offenders
 
 
 # --- front ops --------------------------------------------------------------

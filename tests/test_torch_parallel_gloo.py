@@ -262,7 +262,7 @@ def test_exchange_halo_equals_jax(halo, axis):
     rng = np.random.default_rng(halo + axis)
     x = rng.random((3, 24, 5) if axis == 1 else (24, 5, 2)).astype(np.float32)
     out = distributed.spawn(halo_tiles, 4, "gloo",
-                            (x, (1, 4, 1), halo, axis), TIMEOUT_S)
+                            (x, (1, 4, 1), halo, axis, "cpu"), TIMEOUT_S)
     mesh = jax_build_mesh(JaxMesh(1, 4, 1))
     spec = P(None, "row") if axis == 1 else P("row")
 
@@ -348,6 +348,7 @@ def test_spawn_fails_in_bounded_time_when_a_rank_raises():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="ValueError: a halo of 5 rows"):
         distributed.spawn(halo_tiles, 2, "gloo",
-                          (np.zeros((4, 3), np.float32), (1, 2, 1), 5, 0), 60)
+                          (np.zeros((4, 3), np.float32), (1, 2, 1), 5, 0,
+                           "cpu"), 60)
     assert time.monotonic() - t0 < 30
     assert not torch.multiprocessing.active_children()

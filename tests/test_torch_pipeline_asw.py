@@ -124,7 +124,8 @@ def test_reference_config_bit_equal_on_jax_weights(fixture, jax_reference):
     res, strips = jax_reference
     left = t(gen.from_codes(fixture["left"]))
     right = t(gen.from_codes(fixture["right"]))
-    got = tasw.asw_pipeline_from_weights(left, right, weights_from_jax(strips),
+    got = tasw.asw_pipeline_from_weights(left, right,
+                                         weights_from_jax(strips, "cpu"),
                                          REFERENCE)
     assert_maps_equal(got, fixture)
     assert got.disparity.shape == (288, 384)
@@ -156,8 +157,8 @@ def test_tiny_config_bit_equal_on_jax_weights(kw):
     left, right = left.astype(np.float32), right.astype(np.float32)
     want = jasw.asw_pipeline(jnp.asarray(left), jnp.asarray(right), jcfg)
     got = tasw.asw_pipeline_from_weights(
-        t(left), t(right), weights_from_jax(jax_strips(left, right, jcfg)),
-        cfg)
+        t(left), t(right),
+        weights_from_jax(jax_strips(left, right, jcfg), "cpu"), cfg)
     for f in MAPS + ("consistency_pre", "consistency_post"):
         g, w = n(getattr(got, f)), np.asarray(getattr(want, f))
         if not cfg.quantize_maps:
@@ -195,11 +196,14 @@ def test_cpu_routes_agree_and_unported_options_raise():
 def test_weights_from_jax_validates():
     strips = {k: np.zeros((5, 4, 6), np.float32)
               for k in tasw.ASWWeights._fields}
-    w = weights_from_jax(strips)
+    w = weights_from_jax(strips, "cpu")
     assert w.wv_l.shape == (5, 4, 6) and w.rh_r.device.type == "cpu"
     with pytest.raises(KeyError):
-        weights_from_jax({k: v for k, v in strips.items() if k != "rv_l"})
+        weights_from_jax({k: v for k, v in strips.items() if k != "rv_l"},
+                         "cpu")
     with pytest.raises(ValueError):
-        weights_from_jax({**strips, "wh_r": np.zeros((5, 4, 6), np.float64)})
+        weights_from_jax({**strips, "wh_r": np.zeros((5, 4, 6), np.float64)},
+                         "cpu")
     with pytest.raises(ValueError):
-        weights_from_jax({**strips, "wh_r": np.zeros((3, 4, 6), np.float32)})
+        weights_from_jax({**strips, "wh_r": np.zeros((3, 4, 6), np.float32)},
+                         "cpu")

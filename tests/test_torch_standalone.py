@@ -104,6 +104,16 @@ def _check_registry(tmp_path):
                 assert got.name == os.path.basename(getattr(want, f)), (name, f)
 
 
+def _check_bench_pairs():
+    """The pairs the reference benchmarks, in its order, each registered."""
+    from stereo_matchin_tpu import io as jio
+    from stereo_matchin_tpu_torch import io as tio
+
+    assert tdatasets.BENCH_PAIRS == jdatasets.BENCH_PAIRS
+    assert tio.BENCH_PAIRS == jio.BENCH_PAIRS
+    assert all(name in tdatasets.REGISTRY for name in tdatasets.BENCH_PAIRS)
+
+
 def _check_pics_txt(tmp_path):
     lines = ["tsukuba/im1.png", "tsukuba/im5.png", "../l.png", "../r.png",
              "a/b/art/view1.png", "a/b/art/view5.png", "l.png", "r.png",
@@ -293,7 +303,8 @@ def _check_goldens(tmp_path):
 CASES = {"config_reference": _check_reference, "config_tiny": _check_tiny,
          "config_3": _check_config3, "config_refusals": _check_refusals,
          "mesh_config": _check_mesh_config,
-         "registry": _check_registry, "pics_txt": _check_pics_txt,
+         "registry": _check_registry, "bench_pairs": _check_bench_pairs,
+         "pics_txt": _check_pics_txt,
          "png_round_trip": _check_png, "synthetic_scene": _check_scenes,
          "pfm_round_trip": _check_pfm,
          "pfm_big_endian_colour": _check_pfm_big_endian_colour,
