@@ -37,7 +37,14 @@ decoding ahead (io/loader.py): every file byte-equal to those of `run`'s
 own per-pair work on the pairs decoded inline and the launches asserted,
 timed against that inline loop beside PIL's encode and decode times; and
 `ops.asw_aggregate_2d` on the card against the CPU (0 ulp, 64x96 crop),
-timed with its peak memory at REFERENCE_CONFIG.  Before the last line it
+timed with its peak memory at REFERENCE_CONFIG.  Phase 21 holds the
+frames captured as CUDA graphs (`asw_pipeline`, `cross_pipeline`,
+`asw_pipeline_batched`; utils/graphs.py) against their eager chains
+(`*_impl`): every field bit-equal on pairs other than the captured one,
+one frame's launches a call, held results unchanged, from 288x384 up to
+the config-3 whole frames; warm medians in turns, capture seconds, pool
+bytes and first-call peaks, and the busy share of a replayed 288x384 ASW
+frame under torch.profiler.  Before the last line it
 prints one JSON object with each kernel's launches on its path (and per
 rank on the sharded path at config 3), largest error against its plain
 version, time (`ms`: eager calls, by CUDA events), device time
@@ -1275,12 +1282,13 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def config3_pair(seed):
-    """A seeded UNORM8 pair at config 3's size, made on the card: the right
-    view is the left one shifted by 37 columns plus noise of +-8 codes."""
+def config3_pair(seed, hw=CONFIG3_HW):
+    """A seeded UNORM8 pair at config 3's size (or `hw`), made on the card:
+    the right view is the left one shifted by 37 columns plus noise of +-8
+    codes."""
     import torch
 
-    H, W = CONFIG3_HW
+    H, W = hw
     gen = torch.Generator(device="cuda").manual_seed(seed)
     codes = torch.randint(0, 256, (H, W, 3), generator=gen, device="cuda",
                           dtype=torch.int32)
@@ -1319,8 +1327,8 @@ def config3_asw(cfg, kernels, smi):
 
     def run(route):
         bands, wf, _ = routes[route]
-        if bands == 1:
-            res = asw.asw_pipeline(left, right, cfg)
+        if bands == 1:                     # eager: BandPeaks syncs inside
+            res = asw.asw_pipeline_impl(left, right, cfg)
             whole.update((f, getattr(res, f)) for f in SHARDED_MAPS["asw"])
             return res.disparity, res.filled
         return tiled.asw_pipeline_tiled(left, right, cfg, bands, wavefront=wf)
@@ -1394,7 +1402,8 @@ def config3_cross(cfg, kernels, stats, smi):
     print(f"  synthetic scene {H}x{W} made in "
           f"{time.perf_counter() - t0:.1f} s (host; {smi})")
     cross_kernels_config3(left, right, cfg, stats, smi)
-    runs = {"whole": lambda: cross_based.cross_pipeline(left, right, cfg),
+    runs = {"whole": lambda: cross_based.cross_pipeline_impl(left, right,
+                                                             cfg),
             "wavefront": lambda: tiled.cross_pipeline_tiled(
                 left, right, cfg, B, wavefront=True),
             "halo": lambda: tiled.cross_pipeline_tiled(
@@ -2016,6 +2025,379 @@ def asw2d_phase(left, right, cfg, smi):
     return {"ms": ms, "peak_gb_above_inputs": (peak - base) / 1e9}
 
 
+# Phase 21: the whole frames captured once per signature as CUDA graphs
+# (utils/graphs.py) and replayed, against their eager chains (*_impl).
+
+def eager_batched(left, right, cfg):
+    """asw_pipeline_batched's result through the eager chain, frame by
+    frame."""
+    import torch
+
+    from stereo_matchin_tpu_torch.models import asw
+
+    frames = [asw.asw_pipeline_impl(l, r, cfg) for l, r in zip(left, right)]
+    return asw.ASWResult(*(torch.stack(f) for f in zip(*frames)))
+
+
+def memory_of(fn, kernels):
+    """(result, ms, memory, launches) of one call of fn.  Memory, in bytes
+    above the card's state before the call (cached blocks released before
+    and after): `peak_allocated` (tensors; blind to blocks freed back into
+    a graph's pool during its capture), `peak_reserved` (every segment, the
+    graphs' pools included) and `held` (the drop of the card's free memory
+    across the call, its result still held; net of any graph the call
+    evicted)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    free = torch.cuda.mem_get_info()[0]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out, ms = timed(fn)
+    torch.cuda.empty_cache()
+    return out, ms, {
+        "peak_allocated": torch.cuda.max_memory_allocated() - base,
+        "peak_reserved": torch.cuda.max_memory_reserved() - reserved,
+        "held": free - torch.cuda.mem_get_info()[0]}, dict(kernels.LAUNCHES)
+
+
+def captured_against_eager(label, entry, eager, cfg, pairs, kernels, graphs):
+    """(a) One signature: the captured entry on pairs[0] (its capture) and
+    on the others (replays), each result bit-equal on every field to the
+    eager chain's on the same pair and counting exactly its launches, and
+    the previous pair's result, still held, unchanged after the next call.
+    Returns the capture's stats (utils.graphs), the first call's seconds
+    and memory, and the eager frame's memory (memory_of)."""
+    import torch
+
+    # The first call's own eviction for the count, done before its memory
+    # is read, so that the reading is the new graph's alone.
+    graphs.CACHE.evict_to(graphs.MAX_GRAPHS - 1)
+    held, stats = None, None
+    for k, (left, right) in enumerate(pairs):
+        got, ms, mem, launches = memory_of(lambda: entry(left, right, cfg),
+                                           kernels)
+        if k == 0:
+            stats = dict(list(graphs.CACHE.frames.values())[-1].stats,
+                         first_call_s=ms / 1e3, **{
+                             f"first_call_{m}_bytes": v
+                             for m, v in mem.items()})
+        want, _, eager_mem, eager_launches = memory_of(
+            lambda: eager(left, right, cfg), kernels)
+        if k == 0:
+            stats |= {f"eager_{m}_bytes": v for m, v in eager_mem.items()}
+        if launches != eager_launches:
+            raise AssertionError(f"{label}, pair {k}: the captured call "
+                                 f"launched {launches}, the eager frame "
+                                 f"{eager_launches}")
+        for f in want._fields:
+            g, w = getattr(got, f), getattr(want, f)
+            if g.shape != w.shape or not torch.equal(g, w):
+                n = int((g != w).sum()) if g.shape == w.shape else -1
+                raise AssertionError(f"{label}, pair {k}: captured {f} "
+                                     f"differs from the eager chain's on {n} "
+                                     f"elements")
+        if held is not None and not all(
+                torch.equal(a, b) for a, b in zip(*held)):
+            raise AssertionError(f"{label}: the result held from pair {k - 1} "
+                                 f"changed in the call on pair {k}")
+        held = (got, want)
+        del got, want
+    print(f"  {label}: captured on pair 0, replayed on {len(pairs) - 1} "
+          f"more; every field bit-equal to the eager chain's; each call's "
+          f"launches equal one eager frame's {launches}; held results "
+          f"unchanged")
+    return stats
+
+
+def frame_turns(entry, eager, left, right, cfg, rounds):
+    """(b) Warm frame ms, host clock around synchronized calls, in the
+    turns eager, captured, captured, eager, `rounds` times."""
+    ms = {"captured": [], "eager": []}
+    for _ in range(rounds):
+        for mode in ("eager", "captured", "captured", "eager"):
+            fn = entry if mode == "captured" else eager
+            ms[mode].append(timed(lambda: fn(left, right, cfg))[1])
+    return ms
+
+
+def busy_share(fn):
+    """(c) (host ms, device ms, device launches) of one call of fn under
+    torch.profiler, after one call unprofiled."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, host_ms = timed(fn)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (host_ms, sum(e.device_time_total for e in rows) / 1e3,
+            sum(e.count for e in rows))
+
+
+def graph_phase(cfg, kernels, left, right, smi):
+    """Phase 21: every captured signature against the eager chain (a),
+    their warm medians in turns (b), and the device's busy share of one
+    replayed and one eager 288x384 ASW frame (c).  The cache starts empty,
+    and the config-3 frames are captured after the smaller signatures."""
+    import torch
+
+    from stereo_matchin_tpu_torch.models import asw, cross_based
+    from stereo_matchin_tpu_torch.utils import graphs
+
+    graphs.clear_caches()
+    rng = np.random.default_rng(21)
+    small = [(left, right)] + [random_pair(rng, 288, 384) for _ in range(2)]
+
+    def kitti_batch():
+        pairs = [random_pair(rng, 375, 1242) for _ in range(4)]
+        return tuple(torch.stack([p[k] for p in pairs]) for k in (0, 1))
+
+    c3 = cfg.replace(d_max=279, aggr_d_chunks=4)          # phase 15's
+    A = (asw.asw_pipeline, asw.asw_pipeline_impl)
+    C = (cross_based.cross_pipeline, cross_based.cross_pipeline_impl)
+    # label: (entry, eager chain, cfg, pairs, rounds of timing turns)
+    cases = {
+        "asw 288x384": (*A, cfg, lambda: small, 10),
+        "asw 288x384 plain ops": (*A, cfg.replace(kernels="jnp"),
+                                  lambda: small, 0),
+        "cross 288x384": (*C, cfg, lambda: small, 10),
+        "cross 288x384 taps": (*C, cfg.replace(oii_impl="taps"),
+                               lambda: small, 0),
+        "asw 375x450 scenes": (*A, cfg, lambda: [scene_pair(
+            s, 375, 450, cfg.d_max) for s in (31, 32, 33)], 10),
+        "cross 375x450 scenes": (*C, cfg, lambda: [scene_pair(
+            s, 375, 450, cfg.d_max) for s in (31, 32, 33)], 10),
+        "asw_pipeline_batched B=4 375x1242 d_max 63": (
+            asw.asw_pipeline_batched, eager_batched, cfg.replace(d_max=63),
+            lambda: [kitti_batch() for _ in range(3)], 3),
+        "asw config 3, aggr_d_chunks 4": (*A, c3, lambda: [
+            config3_pair(s) for s in (21, 22, 23)], 10),
+        "cross config 3": (*C, cfg.replace(d_max=279), lambda: [
+            config3_pair(s) for s in (21, 22, 23)], 10),
+    }
+    report, extra = {}, {}
+    for label, (entry, eager, c, make_pairs, rounds) in cases.items():
+        pairs = make_pairs()
+        rep = captured_against_eager(label, entry, eager, c, pairs, kernels,
+                                     graphs)
+        gb = {k: v / 1e9 for k, v in rep.items() if k.endswith("_bytes")}
+        print(f"  {label}: capture {rep['capture_s']:.3f} s after a "
+              f"{rep['warmup_s']:.3f} s warm-up, pool "
+              f"{gb['pool_bytes']:.3f} GB, result "
+              f"{gb['output_bytes']:.3f} GB; first call "
+              f"{rep['first_call_s']:.3f} s, peak "
+              f"{gb['first_call_peak_allocated_bytes']:.3f} GB allocated / "
+              f"{gb['first_call_peak_reserved_bytes']:.3f} GB reserved, "
+              f"holding {gb['first_call_held_bytes']:.3f} GB after it; "
+              f"eager frame peak "
+              f"{gb['eager_peak_allocated_bytes']:.3f} / "
+              f"{gb['eager_peak_reserved_bytes']:.3f} GB, holding "
+              f"{gb['eager_held_bytes']:.3f}; {smi}")
+        if rounds:
+            ms = frame_turns(entry, eager, *pairs[0], c, rounds)
+            for mode, v in ms.items():
+                rep[f"{mode}_ms_quartiles"] = statistics.quantiles(v, n=4)
+                rep[f"{mode}_calls"] = len(v)
+            q = {m: rep[f"{m}_ms_quartiles"][1] for m in ms}
+            print(f"  {label}: warm median captured {q['captured']:.3f} ms, "
+                  f"eager {q['eager']:.3f} ms ({len(ms['eager'])} calls "
+                  f"each, in turns; captured / eager "
+                  f"{q['captured'] / q['eager']:.3f}); {smi}")
+        if label == "asw 288x384":
+            print(" (c) busy share of one 288x384 ASW frame, torch.profiler")
+            for mode, fn in (("captured", lambda: entry(left, right, c)),
+                             ("eager", lambda: eager(left, right, c))):
+                host, dev, n = busy_share(fn)
+                # The same call unprofiled: its span on the card's
+                # timeline by CUDA events, and the kernels' share of it.
+                span = cuda_ms(fn, 10)
+                extra[f"busy_{mode}"] = {"host_ms": host, "device_ms": dev,
+                                         "device_launches": n,
+                                         "busy": dev / host,
+                                         "event_ms": span,
+                                         "busy_of_event_ms": dev / span}
+                print(f"  {mode}: {host:.3f} ms host, {dev:.3f} ms device "
+                      f"({dev / host * 100:.1f}% busy) in {n} device "
+                      f"launches; unprofiled, {span:.3f} ms a call by CUDA "
+                      f"events ({dev / span * 100:.1f}% of it in the "
+                      f"profiled kernels); {smi}")
+        if label.startswith("asw config 3"):
+            vol = entry(*pairs[0], c).aggregated_cost
+            extra["config3_aggregated_cost_clone_ms"] = cuda_ms(vol.clone, 3)
+            extra["config3_aggregated_cost_gb"] = nbytes(vol) / 1e9
+            print(f"  clone of the {nbytes(vol) / 1e9:.2f} GB aggregated_cost: "
+                  f"{extra['config3_aggregated_cost_clone_ms']:.3f} ms")
+            del vol
+        report[label] = rep
+        del pairs
+    print(" (d) first calls under memory pressure: config-3-size frames of "
+          "four sizes in turn, results held")
+    extra["large_sizes"] = large_sizes(cfg, kernels, graphs, smi)
+    print(" (e) mixed sizes: KITTI 2015's four image sizes, both methods, "
+          "from an empty cache")
+    extra["mixed_sizes"] = mixed_sizes(cfg, graphs, smi)
+    q = {m: report["asw 288x384"][f"{m}_ms_quartiles"][1]
+         for m in ("captured", "eager")}
+    print(f"  288x384 ASW: the captured median is "
+          f"{'under' if q['captured'] < q['eager'] / 2 else 'NOT under'} "
+          f"half the eager one ({q['captured']:.3f} against {q['eager']:.3f} "
+          f"ms)")
+    graphs.clear_caches()
+    return {"captured_frames": report, **extra}
+
+
+# (H, W) near config 3's, each its own signature, as the full-size scenes
+# of Middlebury 2014 each have their own size.
+LARGE_HW = [(1988, 2880), (2000, 2964), (1920, 2820), (1940, 2960)]
+# KITTI 2015's image sizes (H, W).
+KITTI_HW = [(375, 1242), (370, 1224), (374, 1238), (376, 1241)]
+
+
+def large_sizes(cfg, kernels, graphs, smi):
+    """(d) `run --method asw` over the sizes LARGE_HW and the first one
+    again, then `--method both` over LARGE_HW, at d_max 279 (ASW with
+    aggr_d_chunks 4): every call a first call, the previous pair's results
+    held through it, each new signature's warm-up and capture beside up to
+    MAX_GRAPHS graphs of about 20 GB.  No call may run out of memory; the
+    last pair's maps are held against the eager chains'."""
+    import torch
+
+    from stereo_matchin_tpu_torch.models import asw, cross_based
+
+    c3 = cfg.replace(d_max=279, aggr_d_chunks=4)
+    runs = {"asw": [("asw", asw.asw_pipeline, asw.asw_pipeline_impl, c3)],
+            "both": [("asw", asw.asw_pipeline, asw.asw_pipeline_impl, c3),
+                     ("cross", cross_based.cross_pipeline,
+                      cross_based.cross_pipeline_impl,
+                      cfg.replace(d_max=279))]}
+    report = {}
+    for method, entries in runs.items():
+        graphs.clear_caches()
+        sizes = LARGE_HW + LARGE_HW[:1] if method == "asw" else LARGE_HW
+        held, rows = [], []
+        for k, hw in enumerate(sizes):
+            pair = config3_pair(40 + k, hw)
+            out = []
+            for name, entry, _, c in entries:
+                res, ms = timed(lambda: entry(*pair, c))
+                out.append(res)
+                free, total = torch.cuda.mem_get_info()
+                rows.append({"hw": hw, "method": name, "s": ms / 1e3,
+                             "graphs": len(graphs.CACHE.frames),
+                             "footprints_gb": sum(
+                                 f.footprint for f in
+                                 graphs.CACHE.frames.values()) / 1e9,
+                             "free_gb": free / 1e9})
+                print(f"  --method {method}, {hw[0]}x{hw[1]} {name}: "
+                      f"{ms / 1e3:.3f} s, {rows[-1]['graphs']} graphs "
+                      f"held ({rows[-1]['footprints_gb']:.3f} GB of pools "
+                      f"and clones), {free / 1e9:.3f} of {total / 1e9:.3f} "
+                      f"GB free after it; {smi}")
+            held = out                   # the previous pair's results go
+        graphs.clear_caches()
+        for (name, _, eager, c), got in zip(entries, held):
+            want = eager(*pair, c)
+            for f in want._fields:
+                if not torch.equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"large sizes, --method {method}: "
+                                         f"{name} {f} differs from the eager "
+                                         f"chain's")
+            del want
+        del held, out, pair
+        report[method] = rows
+        print(f"  --method {method}: no call ran out of memory; the last "
+              f"pair's maps equal the eager chains'")
+    return report
+
+
+def mixed_sizes(cfg, graphs, smi):
+    """(e) Eight pairs of KITTI_HW's sizes at d_max 63, each through ASW and
+    then cross as `run --method both` calls them, in two orders: sizes in
+    turn (eight signatures through a cache of MAX_GRAPHS) and in blocks
+    (a size's two pairs in a row).  Each run starts from an empty cache,
+    as a new `run` process does (kernels loaded); captured beside eager in
+    the turns eager, captured, captured with a cache of 8, captured, eager;
+    every map bit-equal between them.  Reports seconds a run, first calls
+    (misses) a run, and the first pair's seconds: a `run` of a single
+    pair."""
+    import torch
+
+    from stereo_matchin_tpu_torch.models import asw, cross_based
+
+    c = cfg.replace(d_max=63)
+    rng = np.random.default_rng(63)
+    pairs = {hw: [random_pair(rng, *hw) for _ in range(2)] for hw in KITTI_HW}
+    orders = {"in turn": [(hw, i) for i in range(2) for hw in KITTI_HW],
+              "in blocks": [(hw, i) for hw in KITTI_HW for i in range(2)]}
+    captured = (asw.asw_pipeline, cross_based.cross_pipeline)
+    entries = {"captured": captured, "captured, 8 graphs": captured,
+               "eager": (asw.asw_pipeline_impl,
+                         cross_based.cross_pipeline_impl)}
+    cap = graphs.MAX_GRAPHS
+    misses = []
+    cache_first_call = graphs.CACHE.first_call
+
+    def counted_first_call(*args):
+        misses.append(args[0])
+        return cache_first_call(*args)
+
+    report = {}
+    graphs.CACHE.first_call = counted_first_call
+    try:
+        for order, seq in orders.items():
+            rep = {m: {"s": [], "first_pair_s": [], "first_calls": []}
+                   for m in entries}
+            want = None
+            for mode in ("eager", "captured", "captured, 8 graphs",
+                         "captured", "eager"):
+                graphs.clear_caches()
+                graphs.MAX_GRAPHS = 8 if mode.endswith("8 graphs") else cap
+                misses.clear()
+                a_fn, c_fn = entries[mode]
+                maps, secs = [], []
+                for hw, i in seq:
+                    left, right = pairs[hw][i]
+                    got, ms = timed(lambda: (
+                        a_fn(left, right, c).disparity,
+                        c_fn(left, right, c).final))
+                    maps.append(got)
+                    secs.append(ms / 1e3)
+                want = want or maps
+                if not all(torch.equal(g, w) for gm, wm in zip(maps, want)
+                           for g, w in zip(gm, wm)):
+                    raise AssertionError(f"mixed sizes {order}: the {mode} "
+                                         f"maps differ from the eager ones")
+                rep[mode]["s"].append(sum(secs))
+                rep[mode]["first_pair_s"].append(secs[0])
+                rep[mode]["first_calls"].append(len(misses))
+            report[order] = rep
+            print(f"  {order}: {len(seq)} pairs, both methods: captured "
+                  f"{', '.join(f'{x:.3f}' for x in rep['captured']['s'])} s "
+                  f"with {rep['captured']['first_calls']} first calls of "
+                  f"{2 * len(seq)} (a cache of 8: "
+                  f"{rep['captured, 8 graphs']['s'][0]:.3f} s, "
+                  f"{rep['captured, 8 graphs']['first_calls'][0]}), eager "
+                  f"{', '.join(f'{x:.3f}' for x in rep['eager']['s'])} s; "
+                  f"the first pair (a `run` of one pair) captured "
+                  f"{', '.join(f'{x:.3f}' for x in rep['captured']['first_pair_s'])}"
+                  f" s, eager "
+                  f"{', '.join(f'{x:.3f}' for x in rep['eager']['first_pair_s'])}"
+                  f" s; maps bit-equal; {smi}")
+    finally:
+        del graphs.CACHE.first_call
+        graphs.MAX_GRAPHS = cap
+    graphs.clear_caches()
+    return report
+
+
 def codes(img):
     from stereo_matchin_tpu_torch import ops
 
@@ -2072,7 +2454,7 @@ def main() -> int:
     res_k = asw.asw_pipeline(left, right, cfg)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    res_p = asw.asw_pipeline(left, right, cfg.replace(kernels="jnp"))
+    res_p = asw.asw_pipeline_impl(left, right, cfg.replace(kernels="jnp"))
     torch.cuda.synchronize()
     print(f"  launches in one frame: {launches} (asw_pass v+h: "
           f"{launches['asw_pass_v'] + launches['asw_pass_h']})")
@@ -2113,12 +2495,17 @@ def main() -> int:
         print(f"  {f} red mask: {frac * 100:.4f}% equal to JAX")
 
     phase("6. warm per-frame time (host clock around synchronized frames)")
-    frame_ms = {"kernels": [], "plain": []}
-    for mode in ("plain", "kernels", "kernels", "plain") * 2:
-        c = cfg if mode == "kernels" else cfg.replace(kernels="jnp")
+    # "kernels" and "plain" time the eager chain, as every PR before the
+    # captured frames did; "captured" replays asw_pipeline's graph.
+    frame_ms = {"kernels": [], "plain": [], "captured": []}
+    for mode in ("plain", "kernels", "captured", "captured", "kernels",
+                 "plain") * 2:
+        c = cfg.replace(kernels="jnp") if mode == "plain" else cfg
+        frame = asw.asw_pipeline if mode == "captured" else \
+            asw.asw_pipeline_impl
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        asw.asw_pipeline(left, right, c)
+        frame(left, right, c)
         torch.cuda.synchronize()
         frame_ms[mode].append((time.perf_counter() - t0) * 1e3)
     for mode, v in frame_ms.items():
@@ -2142,7 +2529,7 @@ def main() -> int:
     torch.cuda.synchronize()
     cross_launches = dict(kernels.LAUNCHES)
     taps = cfg.replace(oii_impl="taps")
-    cross_p = cross_based.cross_pipeline(left, right, taps)
+    cross_p = cross_based.cross_pipeline_impl(left, right, taps)
     torch.cuda.synchronize()
     print(f"  launches in one frame: {cross_launches}")
     want = dict.fromkeys(kernels.ASW_KERNELS, 0)
@@ -2175,12 +2562,15 @@ def main() -> int:
 
     phase("10. cross warm per-frame time (host clock around synchronized "
           "frames)")
-    cross_ms = {"kernels": [], "plain": []}
-    for mode in ("plain", "kernels", "kernels", "plain") * 4:
-        c = cfg if mode == "kernels" else taps
+    cross_ms = {"kernels": [], "plain": [], "captured": []}
+    for mode in ("plain", "kernels", "captured", "captured", "kernels",
+                 "plain") * 4:
+        c = taps if mode == "plain" else cfg
+        frame = cross_based.cross_pipeline if mode == "captured" else \
+            cross_based.cross_pipeline_impl
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cross_based.cross_pipeline(left, right, c)
+        frame(left, right, c)
         torch.cuda.synchronize()
         cross_ms[mode].append((time.perf_counter() - t0) * 1e3)
     for mode, v in cross_ms.items():
@@ -2271,7 +2661,11 @@ def main() -> int:
     warm = {"asw_288x384_phase6": round(statistics.median(
                 frame_ms["kernels"]), 4),
             "cross_288x384_phase10": round(statistics.median(
-                cross_ms["kernels"]), 4)}
+                cross_ms["kernels"]), 4),
+            "asw_288x384_captured_phase6": round(statistics.median(
+                frame_ms["captured"]), 4),
+            "cross_288x384_captured_phase10": round(statistics.median(
+                cross_ms["captured"]), 4)}
     harness_phase(cfg, kernels, fx, cfx, res_k, left, right, warm, smi)
 
     phase("19. sharded pipelines (parallel/): 4 gloo ranks on this card at "
@@ -2295,6 +2689,15 @@ def main() -> int:
     asw2d_report = asw2d_phase(left, right, cfg, smi)
     print(json.dumps({"run_decode_ahead": run_report,
                       "asw_aggregate_2d": asw2d_report, "card": smi}))
+
+    phase("21. captured frames against eager frames: asw_pipeline, "
+          "cross_pipeline and asw_pipeline_batched replayed from CUDA graphs "
+          "against asw_pipeline_impl / cross_pipeline_impl, 288x384 up to "
+          "config 3")
+    print(" (a) bit-equal on every field, launches, held results; (b) warm "
+          "medians in turns")
+    print(json.dumps(graph_phase(cfg, kernels, left, right, smi)
+                     | {"card": smi}))
 
     path_launches = {
         "asw": launches, "cross": cross_launches,

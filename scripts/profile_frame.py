@@ -9,8 +9,11 @@ on a seeded pair, once to warm up and once under torch.profiler, and
 prints the frame's host time, its device time and the kernels that took
 it, largest first: REFERENCE_CONFIG at 288x384, or with --config3
 BASELINE config 3 (1988x2880, d_max 279; ASW with aggr_d_chunks 4).
-With --stages the frame runs through its stage runner (the stages and
-names of the per-stage harness, bench/harness.py), each stage inside a
+By default the frame is the captured entry (`asw_pipeline`,
+`cross_pipeline`): the warm-up captures it as a CUDA graph, and the
+profiled frame is a replay of that graph.  With --stages the frame runs
+eagerly through its stage runner (the stages and names of the per-stage
+harness, bench/harness.py), each stage inside a
 torch.profiler.record_function range, and it also prints the device time
 of the kernels each stage launched and what no stage launched (the UNORM8
 round trips and other glue between stages).  Needs an NVIDIA GPU; prints

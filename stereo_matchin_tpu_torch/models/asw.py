@@ -23,6 +23,11 @@ under the reference TSV's stage names (utils.call_stage by default;
 bench.harness.StageTimer.run times them).  `asw_pipeline_debug` keeps
 every round's WTA maps, as the reference's debug build dumps them, and
 `asw_pipeline_batched` runs (B, H, W, 3) pairs frame by frame.
+
+`asw_pipeline_impl` is the frame as eager ops; `asw_pipeline` (and so
+`asw_pipeline_batched`) replays it from a CUDA graph captured once per
+signature (utils.graphs), as the JAX package jits asw_pipeline_impl.
+The debug entry and `asw_pipeline_from_weights` stay eager.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from ..config import StereoConfig
 from .. import ops
+from ..utils import graphs
 from ..utils.profiling import call_stage
 
 
@@ -77,9 +83,12 @@ def asw_weights(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
         rv_l=rv_l, rh_l=rh_l, rv_r=rv_r, rh_r=rh_r)
 
 
-def asw_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
-                 crop: tuple = (0, 0)) -> ASWResult:
-    """left/right: (H, W, 3) float32 in [0, 1] on the UNORM8 grid, on one
+def asw_pipeline_impl(left: torch.Tensor, right: torch.Tensor,
+                      cfg: StereoConfig, crop: tuple = (0, 0)) -> ASWResult:
+    """The frame as a chain of eager ops (the JAX package's
+    asw_pipeline_impl); `asw_pipeline` replays it from a CUDA graph.
+
+    left/right: (H, W, 3) float32 in [0, 1] on the UNORM8 grid, on one
     device (the ASW method never median-filters its inputs).
 
     crop=(top, bottom): drop that many rows right after the aggregation
@@ -88,6 +97,15 @@ def asw_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
     clamped refinement reads, so a band driver keeps only rows past them."""
     return asw_pipeline_from_weights(left, right, asw_weights(left, right, cfg),
                                      cfg, crop)
+
+
+def asw_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
+                 crop: tuple = (0, 0)) -> ASWResult:
+    """asw_pipeline_impl(left, right, cfg, crop), captured once per
+    signature (shapes, dtype, device, cfg, crop) as a CUDA graph and
+    replayed on CUDA tensors (utils.graphs), as the JAX package jits it;
+    called directly on CPU tensors.  Each call returns fresh tensors."""
+    return graphs.replay(asw_pipeline_impl, (left, right), (cfg, tuple(crop)))
 
 
 def _to_image(d, cfg: StereoConfig):
@@ -329,7 +347,8 @@ def asw_pipeline_debug_from_weights(left: torch.Tensor, right: torch.Tensor,
 def asw_pipeline_batched(left: torch.Tensor, right: torch.Tensor,
                          cfg: StereoConfig) -> ASWResult:
     """(B, H, W, 3) pairs -> an ASWResult with a leading B on every field.
-    Frames run in sequence, as the JAX package's lax.map runs them."""
+    Frames run in sequence, as the JAX package's lax.map runs them: on
+    CUDA tensors each frame replays asw_pipeline's graph of one frame."""
     if left.shape != right.shape or left.dim() != 4:
         raise ValueError(f"need two (B, H, W, 3) batches, got "
                          f"{tuple(left.shape)} and {tuple(right.shape)}")

@@ -16,7 +16,10 @@ The frame is a chain of stage functions (`_median_stage` ..
 `_vote_stage`, the JAX package's names), each a plain function on tensors;
 `cross_pipeline_staged` runs them through a `run(name, fn, *args)`
 callable (bench.harness.StageTimer.run times each one) and
-`cross_pipeline` is that chain untimed, so the two cannot drift.
+`cross_pipeline_impl` is that chain untimed, so the two cannot drift.
+`cross_pipeline` replays `cross_pipeline_impl` from a CUDA graph captured
+once per signature (utils.graphs), as the JAX package runs the whole
+chain as one XLA program (`cross_pipeline_fused`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from ..config import StereoConfig
 from .. import ops
 from ..kernels import oii_route
+from ..utils import graphs
 from ..utils.profiling import call_stage
 
 
@@ -108,8 +112,18 @@ def cross_pipeline_staged(left: torch.Tensor, right: torch.Tensor,
     return CrossResult(initial=initial, final=final, median_left=ml)
 
 
-def cross_pipeline(left: torch.Tensor, right: torch.Tensor,
-                   cfg: StereoConfig) -> CrossResult:
-    """left/right: (H, W, 3) float32 in [0, 1] on the UNORM8 grid, on one
+def cross_pipeline_impl(left: torch.Tensor, right: torch.Tensor,
+                        cfg: StereoConfig) -> CrossResult:
+    """The frame as a chain of eager ops: cross_pipeline_staged untimed.
+    left/right: (H, W, 3) float32 in [0, 1] on the UNORM8 grid, on one
     device."""
     return cross_pipeline_staged(left, right, cfg)
+
+
+def cross_pipeline(left: torch.Tensor, right: torch.Tensor,
+                   cfg: StereoConfig) -> CrossResult:
+    """cross_pipeline_impl(left, right, cfg), captured once per signature
+    (shapes, dtype, device, cfg) as a CUDA graph and replayed on CUDA
+    tensors (utils.graphs); called directly on CPU tensors.  Each call
+    returns fresh tensors."""
+    return graphs.replay(cross_pipeline_impl, (left, right), (cfg,))

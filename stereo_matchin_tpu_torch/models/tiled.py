@@ -149,11 +149,13 @@ def asw_pipeline_tiled(left, right, cfg: StereoConfig, num_bands: int,
     reach = asw_reach(cfg)
     # The aggregation needs the whole halo; everything after it reaches
     # only k*radius + 1 rows, so each band sheds the rest right after the
-    # aggregation (asw_pipeline's crop).
+    # aggregation (asw_pipeline's crop).  The bands run eagerly: a captured
+    # graph per band shape would hold the first, middle and last bands'
+    # peaks at once, the memory the bands exist to bound.
     keep = cfg.k_iters * cfg.radius + 1
 
     def run_band(l, r, crop):
-        res = asw_mod.asw_pipeline(l, r, cfg, crop)
+        res = asw_mod.asw_pipeline_impl(l, r, cfg, crop)
         return {"disparity": res.disparity, "filled": res.filled}
 
     def band_crop(h_top, h_bot):
@@ -202,8 +204,8 @@ def cross_pipeline_tiled(left, right, cfg: StereoConfig, num_bands: int,
                 "wavefront=True but the cross wavefront band layout is "
                 "unsupported at this geometry/config")
 
-    def run_band(l, r, crop):
-        res = cross_mod.cross_pipeline(l, r, cfg)
+    def run_band(l, r, crop):                  # eager, as the ASW bands
+        res = cross_mod.cross_pipeline_impl(l, r, cfg)
         return {"initial": res.initial, "final": res.final}
 
     out = _run_banded(run_band, left, right, cross_reach(cfg), num_bands)

@@ -96,6 +96,15 @@ def _disp_code_params(d_max: int):
     return None
 
 
+@functools.cache
+def _level_table(d_max: int, device: torch.device) -> torch.Tensor:
+    """The UNORM8 level of every integer disparity 0 .. d_max, on `device`,
+    built once: a host-to-device copy cannot run while a CUDA graph is
+    being captured, so the warm-up builds it and the capture reuses it."""
+    return torch.as_tensor(_UNORM8_LEVELS[_golden_codes(d_max)],
+                           device=device)
+
+
 def disparity_to_image(d: torch.Tensor, d_max: int,
                        quantize: bool = True) -> torch.Tensor:
     """Store an integer-valued disparity on [0, d_max] as the reference's
@@ -107,9 +116,7 @@ def disparity_to_image(d: torch.Tensor, d_max: int,
     di = di.to(torch.int32).clamp(0, d_max)
     params = _disp_code_params(d_max)
     if params is None:
-        table = torch.as_tensor(_UNORM8_LEVELS[_golden_codes(d_max)],
-                                device=d.device)
-        return table[di.long()]
+        return _level_table(d_max, d.device)[di.long()]
     A, B, S = params
     return unorm8_level((di * A + B) >> S)
 

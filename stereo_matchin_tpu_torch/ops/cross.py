@@ -61,5 +61,7 @@ def cross_arms(img: torch.Tensor, arm_len: int = 25, tau: float = 0.10,
             inb = (ny >= 0) & (ny <= h_glob - 1) & (nx >= 0) & (nx <= W - 1)
             alive[i] &= sim & inb
             arm[i] += alive[i].to(torch.int32)
-    sign = torch.tensor([-1, 1, -1, 1], dtype=torch.int32, device=dev)
+    # [-1, 1, -1, 1], made on the device: a CUDA graph capture allows no
+    # copy from the host.
+    sign = torch.arange(4, dtype=torch.int32, device=dev) % 2 * 2 - 1
     return sign[:, None, None] * arm

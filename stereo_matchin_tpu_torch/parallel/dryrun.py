@@ -180,17 +180,19 @@ def dryrun_multichip(n: int, backend: str = "gloo",
     lt, rt = (torch.from_numpy(a).to(dev) for a in (left, right))
     cfg, ccfg = StereoConfig(**DRYRUN_CFG), StereoConfig(**cross_kw)
     h, w = DRYRUN_HW
+    # The unsharded frames run eagerly: several gloo ranks share one card.
     for b in range(batch):
-        ref = asw.asw_pipeline(lt[b], rt[b], cfg)
+        ref = asw.asw_pipeline_impl(lt[b], rt[b], cfg)
         for f in ("disparity", "filled"):
             if not np.array_equal(got_asw[f][b], getattr(ref, f).cpu().numpy()):
                 raise AssertionError(f"ASW {f} of frame {b} differs from the "
                                      f"unsharded pipeline")
     ci = got_cross["initial"]
-    ri = np.stack([cross_based.cross_pipeline(lt[b], rt[b], ccfg).initial.cpu()
-                   .numpy() for b in range(batch)])
+    ri = np.stack([cross_based.cross_pipeline_impl(lt[b], rt[b], ccfg)
+                   .initial.cpu().numpy() for b in range(batch)])
     for b in range(batch):
-        rf = cross_based.cross_pipeline(lt[b], rt[b], ccfg).final.cpu().numpy()
+        rf = (cross_based.cross_pipeline_impl(lt[b], rt[b], ccfg).final.cpu()
+              .numpy())
         if not np.array_equal(got_cross["final"][b], rf):
             raise AssertionError(f"cross final of frame {b} differs from the "
                                  f"unsharded pipeline")

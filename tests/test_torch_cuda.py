@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, bit for bit (the kernels are built with --fmad=false), and the
-ASW and cross slices through the kernels against the plain ops.
+version, bit for bit (the kernels are built with --fmad=false), the
+ASW and cross slices through the kernels against the plain ops, and the
+frames captured as CUDA graphs (utils/graphs.py) against the eager ones.
 
 Every test here needs an NVIDIA GPU and skips elsewhere.  This file
 imports no JAX, so it also runs where JAX is not installed; the
@@ -28,6 +29,7 @@ from stereo_matchin_tpu_torch.kernels import cross_oii as kc
 from stereo_matchin_tpu_torch.kernels import wta_gather as kw
 from stereo_matchin_tpu_torch.kernels.wta_gather import two_min, wta_diag
 from stereo_matchin_tpu_torch.models import asw, cross_based, tiled
+from stereo_matchin_tpu_torch.utils import graphs
 from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
                                                    _two_min_plain)
 
@@ -764,3 +766,160 @@ def test_asw_aggregate_2d_on_the_card_equals_the_cpu(H, W, D, radius):
     got = tops.asw_aggregate_2d(*(a.to(dev) for a in args), radius)
     assert got.device == dev
     assert max_ulp(got, want) == 0
+
+
+# --- the captured frames (utils/graphs.py) ----------------------------------
+
+@pytest.fixture
+def fresh_graphs():
+    graphs.clear_caches()
+    yield graphs.CACHE
+    graphs.clear_caches()
+
+
+def _frame_entry(method, route):
+    """(captured entry, eager chain, config) of a method on a route."""
+    if method == "asw":
+        return (asw.asw_pipeline, asw.asw_pipeline_impl,
+                TINY_CONFIG.replace(kernels=route))
+    return (cross_based.cross_pipeline, cross_based.cross_pipeline_impl,
+            TINY_CONFIG.replace(oii_impl=route))
+
+
+@pytest.mark.parametrize("method,route", [("asw", "auto"), ("asw", "jnp"),
+                                          ("cross", "auto"),
+                                          ("cross", "taps")])
+def test_captured_frame_equals_eager_on_pairs_it_was_not_captured_on(
+        method, route, fresh_graphs):
+    """Captured on pair 0, replayed on pairs 1 and 2: every field bit-equal
+    to the eager chain, and each call, the first included, counts exactly
+    one eager frame's launches."""
+    dev = cuda_device()
+    entry, impl, cfg = _frame_entry(method, route)
+    for seed in (20, 21, 22):
+        left, right = _pair(dev, 48, 64, seed=seed)
+        launches, got = _one_frame_launches(lambda: entry(left, right, cfg))
+        want_launches, want = _one_frame_launches(
+            lambda: impl(left, right, cfg))
+        assert launches == want_launches
+        assert type(got) is type(want)
+        for f in want._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert len(fresh_graphs.frames) == 1
+    stats = next(iter(fresh_graphs.frames.values())).stats
+    assert stats["pool_bytes"] > 0 and stats["capture_s"] > 0
+
+
+def test_batched_replays_one_captured_frame(fresh_graphs):
+    dev = cuda_device()
+    cfg = TINY_CONFIG
+    pairs = [_pair(dev, 40, 56, seed=s) for s in (23, 24, 25)]
+    launches, got = _one_frame_launches(lambda: asw.asw_pipeline_batched(
+        torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs]),
+        cfg))
+    one, _ = _one_frame_launches(lambda: asw.asw_pipeline_impl(*pairs[0],
+                                                               cfg))
+    assert launches == {k: 3 * v for k, v in one.items()}
+    for b, (left, right) in enumerate(pairs):
+        for g, w in zip(got, asw.asw_pipeline_impl(left, right, cfg)):
+            assert torch.equal(g[b], w)
+    assert len(fresh_graphs.frames) == 1
+
+
+@pytest.mark.parametrize("method", ["asw", "cross"])
+def test_held_result_is_not_overwritten_by_the_next_call(method,
+                                                         fresh_graphs):
+    dev = cuda_device()
+    entry, _, cfg = _frame_entry(method, "auto")
+    first = entry(*_pair(dev, 48, 64, seed=26), cfg)
+    kept = [t.clone() for t in first]
+    second = entry(*_pair(dev, 48, 64, seed=27), cfg)
+    torch.cuda.synchronize()
+    for f, k in zip(first, kept):
+        assert torch.equal(f, k)
+    assert not torch.equal(first[0], second[0])
+    assert all(f.data_ptr() != s.data_ptr() for f, s in zip(first, second))
+
+
+def test_calls_from_two_streams_each_get_their_own_pair(fresh_graphs):
+    """A call on a second stream waits for the first stream's replay and
+    clones before it overwrites the static inputs."""
+    dev = cuda_device()
+    cfg = TINY_CONFIG
+    pairs = [_pair(dev, 48, 64, seed=s) for s in (30, 31, 32)]
+    asw.asw_pipeline(*pairs[0], cfg)               # the capture
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    got = []
+    for s, pair in zip(streams, pairs[1:]):
+        with torch.cuda.stream(s):
+            got.append(asw.asw_pipeline(*pair, cfg))
+    torch.cuda.synchronize(dev)
+    for res, pair in zip(got, pairs[1:]):
+        for g, w in zip(res, asw.asw_pipeline_impl(*pair, cfg)):
+            assert torch.equal(g, w)
+    frame = next(iter(fresh_graphs.frames.values()))
+    assert frame.stats["output_bytes"] == sum(
+        t.numel() * t.element_size() for t in got[0])
+    assert frame.footprint == (frame.stats["pool_bytes"]
+                               + frame.stats["output_bytes"])
+
+
+def test_new_signature_captures_another_graph(fresh_graphs):
+    dev = cuda_device()
+    cfg = TINY_CONFIG
+    left, right = _pair(dev, 48, 64, seed=28)
+    asw.asw_pipeline(left, right, cfg)
+    asw.asw_pipeline(left, right, cfg)
+    assert len(fresh_graphs.frames) == 1
+    small = _pair(dev, 40, 64, seed=28)
+    got = asw.asw_pipeline(*small, cfg)
+    assert len(fresh_graphs.frames) == 2
+    cropped = asw.asw_pipeline(left, right, cfg, (3, 5))
+    assert len(fresh_graphs.frames) == 3
+    for g, w in zip(got, asw.asw_pipeline_impl(*small, cfg)):
+        assert torch.equal(g, w)
+    for g, w in zip(cropped, asw.asw_pipeline_impl(left, right, cfg, (3, 5))):
+        assert torch.equal(g, w)
+
+
+def test_least_recently_used_graph_is_evicted_past_four(fresh_graphs):
+    dev = cuda_device()
+    cfg = TINY_CONFIG
+    pairs = {w: _pair(dev, 32, w, seed=w) for w in (40, 48, 56, 64, 72)}
+    for w in (40, 48, 56, 64):
+        cross_based.cross_pipeline(*pairs[w], cfg)
+    cross_based.cross_pipeline(*pairs[40], cfg)       # 48 is now the oldest
+    assert len(fresh_graphs.frames) == graphs.MAX_GRAPHS == 4
+    cross_based.cross_pipeline(*pairs[72], cfg)
+    widths = [key[1][0][0][1] for key in fresh_graphs.frames]
+    assert widths == [56, 64, 40, 72]
+    for w, (left, right) in pairs.items():
+        got = cross_based.cross_pipeline(left, right, cfg)
+        for g, want in zip(got, cross_based.cross_pipeline_impl(left, right,
+                                                                cfg)):
+            assert torch.equal(g, want), w
+    assert len(fresh_graphs.frames) == 4
+
+
+def test_host_copy_during_capture_raises_and_does_not_fall_back(
+        fresh_graphs, monkeypatch):
+    """A copy from the host is legal in the warm-up and not in the capture:
+    the call raises, counts no launch and keeps no graph; the eager frame
+    never stands in."""
+    dev = cuda_device()
+    cfg = TINY_CONFIG
+    left, right = _pair(dev, 48, 64, seed=29)
+    median = cross_based._median_stage
+    monkeypatch.setattr(cross_based, "_median_stage", lambda img: median(
+        img) + torch.tensor([0.0], device=img.device))
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError):
+        cross_based.cross_pipeline(left, right, cfg)
+    assert kernels.LAUNCHES == before
+    assert not fresh_graphs.frames
+    monkeypatch.undo()
+    got = cross_based.cross_pipeline(left, right, cfg)
+    for g, w in zip(got, cross_based.cross_pipeline_impl(left, right, cfg)):
+        assert torch.equal(g, w)

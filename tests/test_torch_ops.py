@@ -107,6 +107,26 @@ def test_disparity_to_image_table_fallback(monkeypatch):
     np.testing.assert_array_equal(n(tops.disparity_to_image(t(d), 60)), want)
 
 
+def test_disparity_to_image_level_table_is_built_once_and_equals_jax():
+    """d_max = 5623, the smallest with no exact multiply-shift, takes the
+    level table: the same bits as JAX, from one table per (d_max, device)
+    (a CUDA graph capture reuses the warm-up's table, since it allows no
+    copy from the host)."""
+    d_max = 5623
+    assert tcommon._disp_code_params(d_max) is None
+    assert all(tcommon._disp_code_params(m) is not None
+               for m in range(1, d_max))
+    d = np.arange(d_max + 1, dtype=np.float32)
+    want = np.asarray(jops.disparity_to_image(jnp.asarray(d), d_max))
+    np.testing.assert_array_equal(n(tops.disparity_to_image(t(d), d_max)),
+                                  want)
+    table = tcommon._level_table(d_max, t(d).device)
+    assert tcommon._level_table(d_max, t(d).device) is table
+    np.testing.assert_array_equal(
+        n(tops.disparity_to_image(t(d.astype(np.int32)), d_max)), want)
+    np.testing.assert_array_equal(n(table), want)
+
+
 @pytest.mark.parametrize("d_max", D_MAXES)
 def test_image_from_q_and_to_unit_match_jax(d_max):
     q = (jcommon._UNORM8_LEVELS * np.float32(d_max)).astype(np.float32)
