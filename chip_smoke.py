@@ -44,7 +44,17 @@ frames captured as CUDA graphs (`asw_pipeline`, `cross_pipeline`,
 one frame's launches a call, held results unchanged, from 288x384 up to
 the config-3 whole frames; warm medians in turns, capture seconds, pool
 bytes and first-call peaks, and the busy share of a replayed 288x384 ASW
-frame under torch.profiler.  Before the last line it
+frame under torch.profiler.  Phase 22 drives the per-stage harness with
+its stages replayed from CUDA graphs (utils/graphs.py StageGraphs) at
+288x384 and 375x450, both methods: the first run's captures (stage
+graphs, seconds, pool and static-input bytes beside the eager frame's
+peak), every stage of a frame on two more pairs replayed bit-equal to
+its eager call, the TSV medians captured against the eager stages in
+turns (each run one frame's launches), the device ms per stage of a
+profiled eager frame and the ratio of each method's total to it; the
+captured `asw_pipeline_debug` against `asw_pipeline_debug_impl` on every
+field; and config 3 through both harness methods with no out-of-memory
+error.  Before the last line it
 prints one JSON object with each kernel's launches on its path (and per
 rank on the sharded path at config 3), largest error against its plain
 version, time (`ms`: eager calls, by CUDA events), device time
@@ -2398,6 +2408,355 @@ def mixed_sizes(cfg, graphs, smi):
     return report
 
 
+# Phase 22: the harness's stages replayed from CUDA graphs (utils/graphs.py
+# StageGraphs, the port's counterpart of the JAX package's stage jits)
+# against the eager stages, and the debug entry captured.
+
+# Timing turns (eager, captured, captured, eager) per size and method.
+STAGE_ROUNDS = 5
+
+
+def staged_frame(method, cfg, run):
+    """A frame of `method` with every stage through `run`, as the harness
+    runs it."""
+    from stereo_matchin_tpu_torch.models import asw, cross_based
+
+    if method == "asw":
+        return lambda left, right: asw.asw_pipeline_from_weights(
+            left, right, asw.asw_weights(left, right, cfg, run=run), cfg,
+            run=run)
+    return lambda left, right: cross_based.cross_pipeline_staged(
+        left, right, cfg, run=run)
+
+
+class StageTwin:
+    """A stage runner that replays each stage from its graph, runs it
+    eagerly as well, and holds the two bit-equal, container types
+    included."""
+
+    def __init__(self, label):
+        self.label, self.calls = label, 0
+
+    def run(self, name, fn, *args):
+        import torch
+
+        from stereo_matchin_tpu_torch.utils import graphs
+
+        got = graphs.replay_stage(name, fn, *args)
+        want = fn(*args)
+        g, w = graphs.leaves(got), graphs.leaves(want)
+        if type(got) is not type(want) or len(g) != len(w):
+            raise AssertionError(f"{self.label} {name}: replayed "
+                                 f"{type(got).__name__} of {len(g)} tensors, "
+                                 f"eager {type(want).__name__} of {len(w)}")
+        for i, (a, b) in enumerate(zip(g, w)):
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                    a, b):
+                raise AssertionError(f"{self.label} {name}: output {i} of "
+                                     f"the replay differs from the eager "
+                                     f"stage's")
+        self.calls += 1
+        return got
+
+
+def eager_timer(harness):
+    """harness.StageTimer with the stage run eagerly between its CUDA
+    events (the host's dispatch included), as the harness timed stages
+    before they were replayed from graphs."""
+    import torch
+
+    class EagerStageTimer(harness.StageTimer):
+        def run(self, name, fn, *args):
+            stream = torch.cuda.current_stream()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            out = fn(*args)
+            end.record(stream)
+            self._pending.append((name, start, end))
+            return out
+
+    return EagerStageTimer
+
+
+def timed_method(harness, method, left, right, cfg, kernels, want,
+                 eager=False):
+    """(TSV columns, wall ms) of one harness run of `method`, captured
+    (the harness as it is) or eager (eager_timer); it must launch exactly
+    one frame's kernels."""
+    fn = getattr(harness, f"time_{method}_method")
+    timer = harness.StageTimer
+    if eager:
+        harness.StageTimer = eager_timer(harness)
+    try:
+        kernels.reset_launches()
+        times, ms = timed(lambda: fn(left, right, cfg))
+    finally:
+        harness.StageTimer = timer
+    if dict(kernels.LAUNCHES) != want:
+        mode = "eager" if eager else "captured"
+        raise AssertionError(f"{method} harness run ({mode}): launches "
+                             f"{dict(kernels.LAUNCHES)} != one frame's {want}")
+    return times, ms
+
+
+def stage_device_ms(method, left, right, cfg):
+    """(ms per stage name, ms outside every stage) of the device time of one
+    warm eager frame under torch.profiler, attributed to stages as
+    scripts/profile_frame.py --stages does (utils.profiling
+    stage_device_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from stereo_matchin_tpu_torch.utils import profiling
+
+    stages = set()
+
+    def run(name, fn, *args):
+        stages.add(name)
+        with record_function(name):
+            return fn(*args)
+
+    frame = staged_frame(method, cfg, run)
+    frame(left, right)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        frame(left, right)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    by_stage = profiling.stage_device_ms(events, stages)
+    outside = by_stage.pop(None, (0.0, 0))[0]
+    if not by_stage:
+        raise AssertionError(f"{method}: the profile attributed no device "
+                             f"time to a stage")
+    return {name: ms for name, (ms, _) in by_stage.items()}, outside
+
+
+def eager_peak(fn):
+    """Bytes allocated above the state before one call of fn, at its
+    peak."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
+
+
+def stages_of_one_size(label, pairs, cfg, kernels, smi):
+    """(a)-(d) at one size, both methods: the first harness run captures
+    (stage seconds, pool and slot bytes beside the eager frame's peak);
+    every stage on two more pairs replayed bit-equal to its eager call;
+    TSV medians captured against eager in turns, each run one frame's
+    launches; the profiled device ms per stage and the ratio of each
+    method's total to it."""
+    from stereo_matchin_tpu_torch.bench import harness
+    from stereo_matchin_tpu_torch.models import asw, cross_based
+    from stereo_matchin_tpu_torch.utils import graphs
+
+    impls = {"asw": asw.asw_pipeline_impl,
+             "cross": cross_based.cross_pipeline_impl}
+    wants = {"asw": expected_asw_launches(cfg, 1, "whole", kernels),
+             "cross": expected_cross_launches(1, kernels)}
+    totals = {"asw": ("total WTA method", "ref_w"),
+              "cross": ("cross method total",)}
+    report = {}
+    left, right = pairs[0]
+    for method, impl in impls.items():
+        graphs.STAGES.clear()
+        peak = eager_peak(lambda: impl(left, right, cfg))
+        _, first_ms = timed_method(harness, method, left, right, cfg,
+                                   kernels, wants[method])
+        st = graphs.STAGES.stats()
+        rep = {"first_run_ms": first_ms, "eager_peak_bytes": peak, **st}
+        print(f"  {label} {method}: first run {first_ms:.1f} ms captured "
+              f"{st['graphs']} stage graphs ({st['warmup_s']:.3f} s of "
+              f"warm-ups, {st['capture_s']:.3f} s of captures); pool "
+              f"{st['pool_bytes'] / 1e9:.3f} GB and static inputs "
+              f"{st['input_bytes'] / 1e9:.3f} GB against the eager frame's "
+              f"peak {peak / 1e9:.3f} GB; {smi}")
+        for k, (l2, r2) in enumerate(pairs[1:], 1):
+            twin = StageTwin(f"{label} {method} pair {k}")
+            got = staged_frame(method, cfg, twin.run)(l2, r2)
+            want = impl(l2, r2, cfg)
+            for f in want._fields:
+                if not torch_equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"{label} {method} pair {k}: {f} "
+                                         f"differs from the eager chain's")
+            if graphs.STAGES.stats()["graphs"] != st["graphs"]:
+                raise AssertionError(f"{label} {method}: a stage was "
+                                     f"captured again on pair {k}")
+        print(f"  {label} {method}: on {len(pairs) - 1} more pairs each of "
+              f"the {twin.calls} stages of a frame replayed bit-equal to its "
+              f"eager call; frames equal to the eager chain's")
+        runs = {"eager": [], "captured": []}
+        for _ in range(STAGE_ROUNDS):
+            for mode in ("eager", "captured", "captured", "eager"):
+                runs[mode].append(timed_method(
+                    harness, method, left, right, cfg, kernels, wants[method],
+                    eager=mode == "eager"))
+        device, outside = stage_device_ms(method, left, right, cfg)
+        columns = (harness.asw_columns(device, cfg) if method == "asw"
+                   else harness.cross_columns(device))
+        med = {mode: {c: statistics.median(t[c] for t, _ in r)
+                      for c in r[0][0]} for mode, r in runs.items()}
+        med["device"] = columns
+        wall = {mode: statistics.median(ms for _, ms in r)
+                for mode, r in runs.items()}
+        total = {mode: sum(m[c] for c in totals[method])
+                 for mode, m in med.items()}
+        rep |= {"tsv_medians_ms": med, "run_wall_median_ms": wall,
+                "device_outside_stages_ms": outside, "totals_ms": total,
+                "captured_over_device": total["captured"] / total["device"],
+                "eager_over_device": total["eager"] / total["device"],
+                "runs": len(runs["captured"])}
+        cols = harness.ASW_COLUMNS + ["ref_w"] if method == "asw" else \
+            harness.CROSS_COLUMNS
+        print(f"  {label} {method}, TSV medians of {len(runs['captured'])} "
+              f"runs each in turns, ms (captured / eager / device):")
+        for c in cols:
+            print(f"    {c:>20}: {med['captured'][c]:9.4f} / "
+                  f"{med['eager'][c]:9.4f} / {columns[c]:9.4f}")
+        print(f"  {label} {method}: {' + '.join(totals[method])} captured "
+              f"{total['captured']:.4f} ms, eager {total['eager']:.4f}, "
+              f"device {total['device']:.4f} (+{outside:.4f} outside every "
+              f"stage): captured / device "
+              f"{rep['captured_over_device']:.3f}, eager / device "
+              f"{rep['eager_over_device']:.3f}; a run's wall median "
+              f"captured {wall['captured']:.3f} ms, eager "
+              f"{wall['eager']:.3f}; {smi}")
+        report[method] = rep
+    return report
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def debug_captured(label, pairs, cfg, kernels):
+    """asw_pipeline_debug captured on pairs[0], replayed on the others:
+    every field, the nested result included, bit-equal to
+    asw_pipeline_debug_impl's on the same pair, each call one debug
+    frame's launches."""
+    from stereo_matchin_tpu_torch.models import asw
+    from stereo_matchin_tpu_torch.utils import graphs
+
+    r, k = cfg.r_iters, cfg.k_iters
+    want_launches = expected_asw_launches(cfg, 1, "whole", kernels)
+    want_launches.update(two_min=1 + r + 1 + k, wta_diag=1 + r + 1 + k)
+    for n, (left, right) in enumerate(pairs):
+        kernels.reset_launches()
+        got, ms = timed(lambda: asw.asw_pipeline_debug(left, right, cfg))
+        check_launches(f"{label} debug pair {n} (captured)",
+                       dict(kernels.LAUNCHES), want_launches)
+        kernels.reset_launches()
+        want, eager_ms = timed(lambda: asw.asw_pipeline_debug_impl(
+            left, right, cfg))
+        check_launches(f"{label} debug pair {n} (eager)",
+                       dict(kernels.LAUNCHES), want_launches)
+        if type(got) is not asw.ASWDebug or type(got.result) is not \
+                asw.ASWResult:
+            raise AssertionError(f"{label} debug: {type(got).__name__}")
+        for f in want._fields:
+            g, w = getattr(got, f), getattr(want, f)
+            for i, (a, b) in enumerate(zip(graphs.leaves(g),
+                                           graphs.leaves(w))):
+                if not torch_equal(a, b):
+                    raise AssertionError(f"{label} debug pair {n}: {f}"
+                                         f"{f'[{i}]' if f == 'result' else ''}"
+                                         f" differs from the eager chain's")
+        print(f"  {label} debug pair {n}: every field (result's "
+              f"{len(want.result)} too) bit-equal to asw_pipeline_debug_impl;"
+              f" {ms:.1f} ms {'(the capture) ' if n == 0 else ''}against "
+              f"{eager_ms:.1f} eager")
+
+
+def config3_stages(cfg, kernels, smi):
+    """(e) Config 3 through time_asw_method and time_cross_method: the first
+    run captures, then one replayed run and one eager run, each one
+    frame's launches, with no out-of-memory error."""
+    import torch
+
+    from stereo_matchin_tpu_torch.bench import harness
+    from stereo_matchin_tpu_torch.utils import graphs
+
+    graphs.clear_caches()
+    left, right = config3_pair(22)
+    cases = {"asw": cfg.replace(d_max=279, aggr_d_chunks=4),
+             "cross": cfg.replace(d_max=279)}
+    report = {}
+    for method, c in cases.items():
+        graphs.STAGES.clear()
+        want = (expected_asw_launches(c, 1, "whole", kernels)
+                if method == "asw" else expected_cross_launches(1, kernels))
+        torch.cuda.reset_peak_memory_stats()
+        rep = {}
+        for mode in ("first", "captured", "eager"):
+            times, ms = timed_method(harness, method, left, right, c,
+                                     kernels, want, eager=mode == "eager")
+            total = (times["total WTA method"] + times["ref_w"]
+                     if method == "asw" else times["cross method total"])
+            rep[mode] = {"wall_ms": ms, "total_ms": total}
+        st = graphs.STAGES.stats()
+        free, card = torch.cuda.mem_get_info()
+        rep |= st | {"peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+                     "free_bytes": free}
+        print(f"  config 3 {method}: {st['graphs']} stage graphs, pool "
+              f"{st['pool_bytes'] / 1e9:.3f} GB, static inputs "
+              f"{st['input_bytes'] / 1e9:.3f} GB, captures "
+              f"{st['capture_s']:.3f} s after {st['warmup_s']:.3f} s of "
+              f"warm-ups; runs (wall / stage total ms): first "
+              f"{rep['first']['wall_ms']:.1f} / {rep['first']['total_ms']:.1f}"
+              f", captured {rep['captured']['wall_ms']:.1f} / "
+              f"{rep['captured']['total_ms']:.1f}, eager "
+              f"{rep['eager']['wall_ms']:.1f} / {rep['eager']['total_ms']:.1f}"
+              f"; peak reserved {rep['peak_reserved_bytes'] / 1e9:.3f} GB, "
+              f"{free / 1e9:.3f} of {card / 1e9:.3f} GB free after; no "
+              f"out-of-memory error; {smi}")
+        report[method] = rep
+    graphs.clear_caches()
+    return report
+
+
+def stage_phase(cfg, kernels, left, right, smi):
+    """Phase 22: at 288x384 and 375x450 both methods' stages through the
+    harness, replayed against eager (stages_of_one_size), the debug entry
+    captured against its eager chain, then config 3 (config3_stages)."""
+    from stereo_matchin_tpu_torch.utils import graphs
+
+    graphs.clear_caches()
+    rng = np.random.default_rng(22)
+    sizes = {"288x384": [(left, right)] + [random_pair(rng, 288, 384)
+                                           for _ in range(2)],
+             "375x450": [scene_pair(s, 375, 450, cfg.d_max)
+                         for s in (41, 42, 43)]}
+    report = {}
+    for label, pairs in sizes.items():
+        print(f" ({'a' if label == '288x384' else 'b'}) {label}: stages, "
+              f"then the debug entry")
+        report[label] = stages_of_one_size(label, pairs, cfg, kernels, smi)
+        debug_captured(label, pairs[:2], cfg, kernels)
+        graphs.clear_caches()
+    r = report["288x384"]
+    for method, limit in (("asw", 1.25), ("cross", 2.0)):
+        ratio = r[method]["captured_over_device"]
+        print(f"  288x384 {method}: the captured stage total is "
+              f"{ratio:.3f}x its device time, "
+              f"{'within' if ratio <= limit else 'NOT within'} {limit}x")
+    print(" (c) config 3 through the harness")
+    report["config3"] = config3_stages(cfg, kernels, smi)
+    return report
+
+
 def codes(img):
     from stereo_matchin_tpu_torch import ops
 
@@ -2495,17 +2854,14 @@ def main() -> int:
         print(f"  {f} red mask: {frac * 100:.4f}% equal to JAX")
 
     phase("6. warm per-frame time (host clock around synchronized frames)")
-    # "kernels" and "plain" time the eager chain, as every PR before the
-    # captured frames did; "captured" replays asw_pipeline's graph.
-    frame_ms = {"kernels": [], "plain": [], "captured": []}
-    for mode in ("plain", "kernels", "captured", "captured", "kernels",
-                 "plain") * 2:
+    # The eager chain through the kernels and through the plain ops; phase
+    # 21 (b) times the captured frame.
+    frame_ms = {"kernels": [], "plain": []}
+    for mode in ("plain", "kernels", "kernels", "plain") * 2:
         c = cfg.replace(kernels="jnp") if mode == "plain" else cfg
-        frame = asw.asw_pipeline if mode == "captured" else \
-            asw.asw_pipeline_impl
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        frame(left, right, c)
+        asw.asw_pipeline_impl(left, right, c)
         torch.cuda.synchronize()
         frame_ms[mode].append((time.perf_counter() - t0) * 1e3)
     for mode, v in frame_ms.items():
@@ -2562,15 +2918,12 @@ def main() -> int:
 
     phase("10. cross warm per-frame time (host clock around synchronized "
           "frames)")
-    cross_ms = {"kernels": [], "plain": [], "captured": []}
-    for mode in ("plain", "kernels", "captured", "captured", "kernels",
-                 "plain") * 4:
+    cross_ms = {"kernels": [], "plain": []}
+    for mode in ("plain", "kernels", "kernels", "plain") * 4:
         c = taps if mode == "plain" else cfg
-        frame = cross_based.cross_pipeline if mode == "captured" else \
-            cross_based.cross_pipeline_impl
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        frame(left, right, c)
+        cross_based.cross_pipeline_impl(left, right, c)
         torch.cuda.synchronize()
         cross_ms[mode].append((time.perf_counter() - t0) * 1e3)
     for mode, v in cross_ms.items():
@@ -2661,11 +3014,7 @@ def main() -> int:
     warm = {"asw_288x384_phase6": round(statistics.median(
                 frame_ms["kernels"]), 4),
             "cross_288x384_phase10": round(statistics.median(
-                cross_ms["kernels"]), 4),
-            "asw_288x384_captured_phase6": round(statistics.median(
-                frame_ms["captured"]), 4),
-            "cross_288x384_captured_phase10": round(statistics.median(
-                cross_ms["captured"]), 4)}
+                cross_ms["kernels"]), 4)}
     harness_phase(cfg, kernels, fx, cfx, res_k, left, right, warm, smi)
 
     phase("19. sharded pipelines (parallel/): 4 gloo ranks on this card at "
@@ -2698,6 +3047,13 @@ def main() -> int:
           "medians in turns")
     print(json.dumps(graph_phase(cfg, kernels, left, right, smi)
                      | {"card": smi}))
+
+    phase("22. the harness's stages replayed from CUDA graphs against the "
+          "eager stages at 288x384 and 375x450, against the profiler's "
+          "device time; asw_pipeline_debug captured; config 3 through the "
+          "harness")
+    print(json.dumps({"stage_graphs": stage_phase(cfg, kernels, left, right,
+                                                  smi), "card": smi}))
 
     path_launches = {
         "asw": launches, "cross": cross_launches,

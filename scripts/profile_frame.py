@@ -115,38 +115,23 @@ def main() -> int:
 
 
 def print_stages(prof, stages, device_ms):
-    """Device time by stage, from the Chrome trace: each kernel, copy or
-    set goes to the stage whose host range holds the runtime call that
-    launched it (matched by correlation id).  The operator tree would miss
-    the kernels launched through ctypes (csrc/*.cu), which no torch
-    operator owns."""
-    import bisect
+    """Device time by stage (utils.profiling.stage_device_ms over the
+    profile's Chrome trace)."""
     import json
     import tempfile
+
+    from stereo_matchin_tpu_torch.utils.profiling import stage_device_ms
 
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         path = pathlib.Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
-                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                   and "correlation" in e.get("args", {})}
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("cat") == "user_annotation"
-                   and e.get("name") in stages)
-    starts = [sp[0] for sp in spans]
-    by_stage = {}
-    for e in events:
-        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        t = launched_at.get(e.get("args", {}).get("correlation"))
-        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
-        name = spans[i][2] if i >= 0 and t <= spans[i][1] else None
-        ms, n = by_stage.get(name, (0.0, 0))
-        by_stage[name] = (ms + e["dur"] / 1e3, n + 1)
+    by_stage = stage_device_ms(events, stages)
+    spans = sum(e.get("cat") == "user_annotation" and e.get("name") in stages
+                for e in events)
     outside = by_stage.pop(None, (0.0, 0))
     total = sum(ms for ms, _ in by_stage.values()) + outside[0]
-    print(f"by stage ({len(spans)} stage ranges): {total:.3f} ms of "
+    print(f"by stage ({spans} stage ranges): {total:.3f} ms of "
           f"kernels, copies and sets in the trace (operator table "
           f"{device_ms:.3f} ms), {outside[0]:.3f} ms of them in "
           f"{outside[1]} launches outside every stage")

@@ -23,13 +23,19 @@ launches exactly what one frame of the pipeline does.
     are timed as "ref_w", outside the columns and the total, as the JAX
     harness leaves them untimed)
 
-Timing.  On a CUDA device StageTimer records an event before and after
-each stage on the stream of the stage's inputs and reads the intervals after one
-torch.cuda.synchronize() at the end of the method: it adds no sync the
-pipeline lacks.  An interval is stream time between the two events; where
-the host dispatches a stage's small ops slower than the card runs them
-(the 288x384 frames: mostly idle card), it measures that dispatch, not
-device time.  On the CPU it reads time.perf_counter around each stage.
+Timing.  On a CUDA device each stage replays its CUDA graph
+(utils.graphs.STAGES, the port's counterpart of the JAX harness's stage
+jits: captured on the first call of each stage signature, which is the
+warm-up run of run_benchmark).  StageTimer records an event on the current
+stream just before and just after the replay and reads the intervals
+after one torch.cuda.synchronize() at the end of the method: it adds no
+sync the pipeline lacks.  An interval holds the stage's kernels as the
+card runs them from the graph, and any wait of the card for the host to
+launch the graph.  It leaves out the copy of the stage's tensors into the
+graph's static inputs, the clones of its outputs, and the glue ops
+between stages (the UNORM8 conversions and red diagnostics, the
+median-truncate quirk), which run eagerly outside every stage.  On the
+CPU StageTimer reads time.perf_counter around fn itself.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 
 from ..config import StereoConfig
 from ..io import load_pair
+from ..utils import graphs
 
 # Column remapping vs the reference TSV: the reference's cross_h/cross_v
 # are its horizontal/vertical cross kernels; here each _arms_stage call
@@ -64,10 +71,11 @@ ASW_COLUMNS = [
 class StageTimer:
     """Times named stages and accumulates them, in ms per call.
 
-    A stage whose first tensor argument lies on a CUDA device is timed by
-    CUDA events on that device's current stream, read after one
-    synchronize; any other stage by the host clock.  Each stage is
-    dispatched once, so a timed run launches what one frame launches.
+    A stage whose first tensor argument lies on a CUDA device replays its
+    graph (graphs.STAGES) between two CUDA events on that device's current
+    stream, read after one synchronize; any other stage runs fn under the
+    host clock.  Each stage runs once, so a timed run launches what one
+    frame launches.
     """
 
     def __init__(self):
@@ -82,12 +90,9 @@ class StageTimer:
             out = fn(*args)
             self._add(name, (time.perf_counter() - t0) * 1000.0)
             return out
-        stream = torch.cuda.current_stream(device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        out = fn(*args)
-        end.record(stream)
+        out = graphs.STAGES.call(name, fn, args, start, end)
         self._pending.append((name, start, end))
         return out
 
@@ -114,13 +119,10 @@ def _device_name(device: torch.device) -> str:
     return device.type
 
 
-def time_cross_method(left, right, cfg: StereoConfig) -> Dict[str, float]:
-    """One timed run of the cross pipeline, stage by stage."""
-    from ..models.cross_based import cross_pipeline_staged
-
-    t = StageTimer()
-    cross_pipeline_staged(left, right, cfg, run=t.run)
-    times = dict(t.times)
+def cross_columns(ms: Dict[str, float]) -> Dict[str, float]:
+    """The cross method's TSV columns from ms per stage name (a timed run's
+    StageTimer.times, or any other reading of the same stages)."""
+    times = dict(ms)
     times["med_full"] = times["medL_solo"] + times["medR_solo"]
     times["cross_full"] = times["cross_h"] + times["cross_v"]
     times["integral_h"] = 0.0   # folded into aggr_h by the taps order
@@ -132,6 +134,49 @@ def time_cross_method(left, right, cfg: StereoConfig) -> Dict[str, float]:
     return times
 
 
+def asw_columns(ms: Dict[str, float], cfg: StereoConfig) -> Dict[str, float]:
+    """The ASW method's TSV columns, and "ref_w", from ms per stage name."""
+    r, k = max(cfg.r_iters, 1), max(cfg.k_iters, 1)
+    t = {name: ms.get(name, 0.0) for name in (
+        "aggr", "supp_w", "v_aggr", "h_aggr", "wta", "consistency", "v_ref_L",
+        "v_ref_R", "h_ref_L", "h_ref_R", "wta_ref", "consistency_ref",
+        "median", "ref_w")}
+    times = {
+        "aggr": t["aggr"],
+        "supp_w": t["supp_w"],
+        "v_aggr_mean": t["v_aggr"] / r,
+        "h_aggr_mean": t["h_aggr"] / r,
+        "total aggregation": t["v_aggr"] + t["h_aggr"],
+        "wta": t["wta"],
+        "consistency": t["consistency"],
+        "v_ref_mean_L": t["v_ref_L"] / k,
+        "v_ref_mean_R": t["v_ref_R"] / k,
+        "h_ref_mean_L": t["h_ref_L"] / k,
+        "h_ref_mean_R": t["h_ref_R"] / k,
+        "wta_mean_LR": t["wta_ref"] / k,
+        "consistency_mean": t["consistency_ref"] / k,
+        "median": t["median"],
+        "ref_w": t["ref_w"],
+    }
+    times["total refinement"] = (t["v_ref_L"] + t["v_ref_R"] + t["h_ref_L"] +
+                                 t["h_ref_R"] + t["wta_ref"] +
+                                 t["consistency_ref"])
+    times["total WTA method"] = (times["aggr"] + times["supp_w"] +
+                                 times["total aggregation"] + times["wta"] +
+                                 times["consistency"] +
+                                 times["total refinement"] + times["median"])
+    return times
+
+
+def time_cross_method(left, right, cfg: StereoConfig) -> Dict[str, float]:
+    """One timed run of the cross pipeline, stage by stage."""
+    from ..models.cross_based import cross_pipeline_staged
+
+    t = StageTimer()
+    cross_pipeline_staged(left, right, cfg, run=t.run)
+    return cross_columns(t.times)
+
+
 def time_asw_method(left, right, cfg: StereoConfig) -> Dict[str, float]:
     """One timed run of the ASW pipeline, stage by stage (the stages of
     models.asw.asw_pipeline)."""
@@ -140,32 +185,7 @@ def time_asw_method(left, right, cfg: StereoConfig) -> Dict[str, float]:
     t = StageTimer()
     weights = asw_weights(left, right, cfg, run=t.run)
     asw_pipeline_from_weights(left, right, weights, cfg, run=t.run)
-    r, k = max(cfg.r_iters, 1), max(cfg.k_iters, 1)
-    times = {
-        "aggr": t.ms("aggr"),
-        "supp_w": t.ms("supp_w"),
-        "v_aggr_mean": t.ms("v_aggr") / r,
-        "h_aggr_mean": t.ms("h_aggr") / r,
-        "total aggregation": t.ms("v_aggr") + t.ms("h_aggr"),
-        "wta": t.ms("wta"),
-        "consistency": t.ms("consistency"),
-        "v_ref_mean_L": t.ms("v_ref_L") / k,
-        "v_ref_mean_R": t.ms("v_ref_R") / k,
-        "h_ref_mean_L": t.ms("h_ref_L") / k,
-        "h_ref_mean_R": t.ms("h_ref_R") / k,
-        "wta_mean_LR": t.ms("wta_ref") / k,
-        "consistency_mean": t.ms("consistency_ref") / k,
-        "median": t.ms("median"),
-        "ref_w": t.ms("ref_w"),
-    }
-    times["total refinement"] = (t.ms("v_ref_L") + t.ms("v_ref_R") +
-                                 t.ms("h_ref_L") + t.ms("h_ref_R") +
-                                 t.ms("wta_ref") + t.ms("consistency_ref"))
-    times["total WTA method"] = (times["aggr"] + times["supp_w"] +
-                                 times["total aggregation"] + times["wta"] +
-                                 times["consistency"] +
-                                 times["total refinement"] + times["median"])
-    return times
+    return asw_columns(t.times, cfg)
 
 
 def run_benchmark(pair_names: List, cfg: StereoConfig, runs: int = 10,

@@ -27,7 +27,10 @@ every round's WTA maps, as the reference's debug build dumps them, and
 `asw_pipeline_impl` is the frame as eager ops; `asw_pipeline` (and so
 `asw_pipeline_batched`) replays it from a CUDA graph captured once per
 signature (utils.graphs), as the JAX package jits asw_pipeline_impl.
-The debug entry and `asw_pipeline_from_weights` stay eager.
+`asw_pipeline_debug` replays `asw_pipeline_debug_impl` the same way.
+`asw_pipeline_from_weights` and `asw_pipeline_debug_from_weights` stay
+eager; their stages replay stage graphs where the caller passes
+utils.graphs.replay_stage as `run`, as bench.harness does.
 """
 
 from __future__ import annotations
@@ -280,12 +283,23 @@ def _stack(maps: list, shape: tuple, like: torch.Tensor) -> torch.Tensor:
     return like.new_empty((0,) + tuple(shape))
 
 
-def asw_pipeline_debug(left: torch.Tensor, right: torch.Tensor,
-                       cfg: StereoConfig) -> ASWDebug:
-    """asw_pipeline with every round's WTA maps captured; the JAX
-    package's asw_pipeline_debug."""
+def asw_pipeline_debug_impl(left: torch.Tensor, right: torch.Tensor,
+                            cfg: StereoConfig) -> ASWDebug:
+    """asw_pipeline_impl with every round's WTA maps kept, as eager ops
+    (the JAX package's asw_pipeline_debug_impl); `asw_pipeline_debug`
+    replays it from a CUDA graph."""
     return asw_pipeline_debug_from_weights(left, right,
                                            asw_weights(left, right, cfg), cfg)
+
+
+def asw_pipeline_debug(left: torch.Tensor, right: torch.Tensor,
+                       cfg: StereoConfig) -> ASWDebug:
+    """asw_pipeline_debug_impl(left, right, cfg), captured once per
+    signature (shapes, dtype, device, cfg) as a CUDA graph and replayed on
+    CUDA tensors (utils.graphs), as the JAX package jits it; called
+    directly on CPU tensors.  Each call returns fresh tensors, the nested
+    `result` included."""
+    return graphs.replay(asw_pipeline_debug_impl, (left, right), (cfg,))
 
 
 class _DebugRecorder:

@@ -19,7 +19,10 @@ callable (bench.harness.StageTimer.run times each one) and
 `cross_pipeline_impl` is that chain untimed, so the two cannot drift.
 `cross_pipeline` replays `cross_pipeline_impl` from a CUDA graph captured
 once per signature (utils.graphs), as the JAX package runs the whole
-chain as one XLA program (`cross_pipeline_fused`).
+chain as one XLA program (`cross_pipeline_fused`).  Where the JAX package
+jits each stage function, the port replays a graph per stage signature:
+`cross_pipeline_staged(left, right, cfg, run=utils.replay_stage)`, as
+bench.harness runs it on the card.
 """
 
 from __future__ import annotations
@@ -87,7 +90,11 @@ def cross_pipeline_staged(left: torch.Tensor, right: torch.Tensor,
                           cfg: StereoConfig, run=call_stage) -> CrossResult:
     """The frame as its stages, each through run(name, fn, *args) under
     the reference TSV's column names; the median-truncate quirk runs
-    outside any column, as in the JAX harness."""
+    outside any column, as in the JAX harness.  run=utils.replay_stage
+    replays each stage from its CUDA graph on the card, as the JAX
+    package's stage jits run; the default, utils.call_stage, keeps the
+    chain eager for cross_pipeline_impl, which cross_pipeline captures
+    whole."""
     if left.shape != right.shape or left.dim() != 3 or left.shape[2] != 3:
         raise ValueError(f"need two (H, W, 3) images, got {tuple(left.shape)} "
                          f"and {tuple(right.shape)}")

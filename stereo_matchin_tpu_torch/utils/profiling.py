@@ -13,7 +13,10 @@ The reference's observability is OpenCL event profiling feeding
     card is present, CUDA activities) writing a Chrome trace.
   * `call_stage` — the untimed stage runner: the pipelines take a
     `run(name, fn, *args)` callable (bench.harness.StageTimer.run times
-    each stage); this one just calls fn.
+    each stage; utils.graphs.replay_stage replays each from a CUDA graph);
+    this one just calls fn.
+  * `stage_device_ms` — the device time of a profiled frame by stage, from
+    its Chrome trace (scripts/profile_frame.py --stages).
 
 The JAX package's `utils/compilation_cache.py` has no counterpart: the
 port compiles only its CUDA sources, and `kernels/_build.py` keeps the
@@ -22,6 +25,7 @@ built library keyed by their contents.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import os
 import time
@@ -101,3 +105,30 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def stage_device_ms(events, stages) -> dict:
+    """Device time by stage from a torch.profiler Chrome trace's
+    `traceEvents`: each kernel, copy or set goes to the stage whose
+    `record_function` range (a user annotation named in `stages`) holds
+    the runtime call that launched it, matched by correlation id.  Returns
+    {stage: (ms, launches)}, None for what no stage launched (the glue
+    between stages).  The operator tree would miss the kernels launched
+    through ctypes (csrc/*.cu), which no torch operator owns."""
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {})}
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name") in stages)
+    starts = [sp[0] for sp in spans]
+    by_stage = {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launched_at.get(e.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        name = spans[i][2] if i >= 0 and t <= spans[i][1] else None
+        ms, n = by_stage.get(name, (0.0, 0))
+        by_stage[name] = (ms + e["dur"] / 1e3, n + 1)
+    return by_stage

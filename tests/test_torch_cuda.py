@@ -923,3 +923,130 @@ def test_host_copy_during_capture_raises_and_does_not_fall_back(
     got = cross_based.cross_pipeline(left, right, cfg)
     for g, w in zip(got, cross_based.cross_pipeline_impl(left, right, cfg)):
         assert torch.equal(g, w)
+
+
+# --- the stage graphs (utils/graphs.py StageGraphs, replay_stage) ----------
+
+def _staged(method, cfg, run):
+    """A frame of `method` with every stage through `run`."""
+    if method == "asw":
+        return lambda left, right: asw.asw_pipeline_from_weights(
+            left, right, asw.asw_weights(left, right, cfg, run=run), cfg,
+            run=run)
+    return lambda left, right: cross_based.cross_pipeline_staged(
+        left, right, cfg, run=run)
+
+
+class _Twin:
+    """A stage runner that replays each stage from its graph, runs it
+    eagerly as well, and holds the two bit-equal, container types
+    included."""
+
+    def __init__(self):
+        self.names = []
+
+    def run(self, name, fn, *args):
+        got = graphs.replay_stage(name, fn, *args)
+        want = fn(*args)
+        assert type(got) is type(want), name
+        g, w = graphs.leaves(got), graphs.leaves(want)
+        assert len(g) == len(w) > 0, name
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+        self.names.append(name)
+        return got
+
+
+@pytest.mark.parametrize("method,chunks", [("asw", 0), ("asw", 2),
+                                           ("cross", 0)])
+def test_every_replayed_stage_equals_its_eager_call(method, chunks,
+                                                    fresh_graphs):
+    """Captured on one pair, every stage of a frame on another pair replays
+    (no new graph) bit-equal to its eager call, and the frame equals the
+    eager chain's."""
+    dev = cuda_device()
+    cfg = TINY_CONFIG.replace(aggr_d_chunks=chunks)
+    _staged(method, cfg, graphs.replay_stage)(*_pair(dev, 48, 64, seed=40))
+    held = graphs.STAGES.stats()
+    assert held["graphs"] > 0 and held["pool_bytes"] > 0
+    pair = _pair(dev, 48, 64, seed=41)
+    twin = _Twin()
+    got = _staged(method, cfg, twin.run)(*pair)
+    assert graphs.STAGES.stats()["graphs"] == held["graphs"]
+    impl = (asw.asw_pipeline_impl if method == "asw"
+            else cross_based.cross_pipeline_impl)
+    for g, w in zip(got, impl(*pair, cfg)):
+        assert torch.equal(g, w)
+    if method == "asw":
+        r, k = cfg.r_iters, cfg.k_iters
+        chunk_count = 2 if chunks else 1
+        assert twin.names.count("v_aggr") == chunk_count * (1 + r)
+        assert twin.names.count("wta_ref") == k
+    else:
+        assert len(twin.names) == 8
+
+
+def test_timed_runs_replay_and_launch_one_frame_each(fresh_graphs):
+    """The harness's first run captures its stages; every run, the first
+    included, launches exactly one frame's kernels, and later runs capture
+    nothing."""
+    from stereo_matchin_tpu_torch.bench import harness
+
+    dev = cuda_device()
+    cfg = TINY_CONFIG
+    left, right = _pair(dev, 48, 64, seed=44)
+    for timed, frame in ((harness.time_asw_method, asw.asw_pipeline_impl),
+                         (harness.time_cross_method,
+                          cross_based.cross_pipeline_impl)):
+        want, _ = _one_frame_launches(lambda: frame(left, right, cfg))
+        counts = []
+        for _ in range(3):
+            got, times = _one_frame_launches(lambda: timed(left, right, cfg))
+            assert got == want
+            assert all(v >= 0.0 for v in times.values())
+            counts.append(graphs.STAGES.stats()["graphs"])
+        assert counts[0] > 0 and counts[0] == counts[1] == counts[2]
+
+
+def test_held_stage_results_survive_later_replays(fresh_graphs):
+    """Every replay writes the shared pool that holds the graphs' outputs;
+    what a call returned is a clone that no later replay touches."""
+    dev = cuda_device()
+    frame = _staged("asw", TINY_CONFIG, graphs.replay_stage)
+    first = frame(*_pair(dev, 48, 64, seed=45))
+    kept = [t.clone() for t in first]
+    second = frame(*_pair(dev, 48, 64, seed=46))
+    torch.cuda.synchronize()
+    for f, k in zip(first, kept):
+        assert torch.equal(f, k)
+    assert not torch.equal(first.aggregated_cost, second.aggregated_cost)
+
+
+def test_stage_runner_refuses_to_run_inside_a_capture(fresh_graphs):
+    dev = cuda_device()
+    x = torch.ones(8, device=dev)
+    with pytest.raises(RuntimeError, match="inside another capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            graphs.replay_stage("median", torch.neg, x)
+    assert not graphs.STAGES.graphs
+
+
+@pytest.mark.parametrize("k_iters", [2, 0])
+def test_captured_debug_equals_its_eager_chain(k_iters, fresh_graphs):
+    """asw_pipeline_debug replays one graph: on the pair it was captured on
+    and on another, every field, the nested result included, is bit-equal
+    to asw_pipeline_debug_impl's, with one debug frame's launches."""
+    dev = cuda_device()
+    cfg = TINY_CONFIG.replace(k_iters=k_iters)
+    for seed in (47, 48):
+        pair = _pair(dev, 48, 64, seed=seed)
+        launches, got = _one_frame_launches(
+            lambda: asw.asw_pipeline_debug(*pair, cfg))
+        want_launches, want = _one_frame_launches(
+            lambda: asw.asw_pipeline_debug_impl(*pair, cfg))
+        assert launches == want_launches
+        assert type(got) is asw.ASWDebug
+        assert type(got.result) is asw.ASWResult
+        for g, w in zip(graphs.leaves(got), graphs.leaves(want)):
+            assert torch.equal(g, w)
+    assert len(fresh_graphs.frames) == 1
