@@ -54,7 +54,17 @@ turns (each run one frame's launches), the device ms per stage of a
 profiled eager frame and the ratio of each method's total to it; the
 captured `asw_pipeline_debug` against `asw_pipeline_debug_impl` on every
 field; and config 3 through both harness methods with no out-of-memory
-error.  Before the last line it
+error.  Phase 23 drives the band drivers with their band steps replayed
+from CUDA graphs (the default) against the same steps run eagerly
+(`run=utils.call_stage`, as phases 15 and 16 run them): the 400x450 scene in
+2 and 3 bands and config 3 in 5 bands (both methods, wavefront and halo)
+and in 8 (ASW wavefront), every map bit-equal to the eager steps' and to
+the whole frame's (config 3: phases 15 and 16's), every call one banded
+frame's launches, graphs by step, nothing captured on a second frame,
+first-call seconds, pool and slot bytes, warm medians in turns, the
+device ms and busy share of one captured run, and each captured ASW
+frame's peak reserved memory held against the band plan.  Before the
+last line it
 prints one JSON object with each kernel's launches on its path (and per
 rank on the sharded path at config 3), largest error against its plain
 version, time (`ms`: eager calls, by CUDA events), device time
@@ -72,6 +82,7 @@ result.
 
 from __future__ import annotations
 
+import collections
 import importlib.util
 import itertools
 import json
@@ -1317,6 +1328,7 @@ def config3_asw(cfg, kernels, smi):
     import torch
 
     from stereo_matchin_tpu_torch.models import asw, tiled, wavefront
+    from stereo_matchin_tpu_torch.utils import call_stage
 
     H, W = CONFIG3_HW
     B = CONFIG3_BANDS
@@ -1341,7 +1353,8 @@ def config3_asw(cfg, kernels, smi):
             res = asw.asw_pipeline_impl(left, right, cfg)
             whole.update((f, getattr(res, f)) for f in SHARDED_MAPS["asw"])
             return res.disparity, res.filled
-        return tiled.asw_pipeline_tiled(left, right, cfg, bands, wavefront=wf)
+        return tiled.asw_pipeline_tiled(left, right, cfg, bands, wavefront=wf,
+                                        run=call_stage)
 
     maps, launches, over = {}, {}, []
     for rep, names in enumerate((("whole", "wavefront", "halo"),
@@ -1404,6 +1417,7 @@ def config3_cross(cfg, kernels, stats, smi):
     import torch
 
     from stereo_matchin_tpu_torch.models import cross_based, tiled
+    from stereo_matchin_tpu_torch.utils import call_stage
 
     H, W = CONFIG3_HW
     B = CONFIG3_BANDS
@@ -1415,9 +1429,9 @@ def config3_cross(cfg, kernels, stats, smi):
     runs = {"whole": lambda: cross_based.cross_pipeline_impl(left, right,
                                                              cfg),
             "wavefront": lambda: tiled.cross_pipeline_tiled(
-                left, right, cfg, B, wavefront=True),
+                left, right, cfg, B, wavefront=True, run=call_stage),
             "halo": lambda: tiled.cross_pipeline_tiled(
-                left, right, cfg, B, wavefront=False)}
+                left, right, cfg, B, wavefront=False, run=call_stage)}
     launches, maps = {}, {}
     for rep in range(2):
         for route, fn in runs.items():
@@ -2159,7 +2173,7 @@ def graph_phase(cfg, kernels, left, right, smi):
     and the config-3 frames are captured after the smaller signatures."""
     import torch
 
-    from stereo_matchin_tpu_torch.models import asw, cross_based
+    from stereo_matchin_tpu_torch.models import asw, cross_based, tiled
     from stereo_matchin_tpu_torch.utils import graphs
 
     graphs.clear_caches()
@@ -2240,6 +2254,14 @@ def graph_phase(cfg, kernels, left, right, smi):
                       f"events ({dev / span * 100:.1f}% of it in the "
                       f"profiled kernels); {smi}")
         if label.startswith("asw config 3"):
+            plan = tiled.asw_plan_bytes(*CONFIG3_HW, c, banded=False)
+            peak = rep["first_call_peak_reserved_bytes"]
+            print(f"  {label}: the first call's peak reserved "
+                  f"{peak / 1e9:.3f} GB against the plan "
+                  f"(models.tiled.asw_plan_bytes) {plan / 1e9:.3f} GB")
+            if peak > plan:
+                raise AssertionError(f"{label}: the captured frame peaked "
+                                     f"above the plan")
             vol = entry(*pairs[0], c).aggregated_cost
             extra["config3_aggregated_cost_clone_ms"] = cuda_ms(vol.clone, 3)
             extra["config3_aggregated_cost_gb"] = nbytes(vol) / 1e9
@@ -2757,6 +2779,239 @@ def stage_phase(cfg, kernels, left, right, smi):
     return report
 
 
+# Phase 23: the band drivers' steps replayed from CUDA graphs (models/
+# tiled.py, wavefront.py and wavefront_cross.py through utils.replay_stage,
+# the port's counterpart of the JAX package's band-step jits) against the
+# same steps run eagerly (run=utils.call_stage).
+
+# Timing turns (eager, captured, captured, eager) of each config-3 driver.
+BAND_ROUNDS = 2
+
+
+def band_count(method, H, cfg, bands, wf):
+    """The bands a driver runs: the wavefront plan's, or the halo loop's."""
+    from stereo_matchin_tpu_torch.models import wavefront, wavefront_cross
+
+    if wf and method == "asw":
+        return len(wavefront.plan_bands(H, bands, cfg))
+    if wf:
+        return len(wavefront_cross.plan_bands_cross(H, bands, cfg))
+    band = -(-H // bands)
+    return len([b for b in range(bands) if b * band < H])
+
+
+def kept_rows(H, cfg, bands, wf):
+    """The largest band's kept rows (the band plan's argument)."""
+    from stereo_matchin_tpu_torch.models import wavefront
+
+    if wf:
+        return max(g.e - g.s for g in wavefront.plan_bands(H, bands, cfg))
+    return -(-H // bands)
+
+
+def steps_held():
+    """{step name: graphs} of the stage graphs held."""
+    from stereo_matchin_tpu_torch.utils import graphs
+
+    return dict(collections.Counter(k[0] for k in graphs.STAGES.graphs))
+
+
+def band_case(label, method, cfg, bands, wf, pair, whole, kernels, smi,
+              rounds=0, profile=False):
+    """One band driver on one pair: the first call captures (seconds, graphs
+    by step, pool and slot bytes, the peak reserved over it and the card's
+    bytes held after it: pool, slots and the result, by mem_get_info); a
+    second call replays with no capture and its peak reserved; both
+    bit-equal to the eager steps (run=call_stage) and to `whole` (the
+    whole frame's maps), every call one banded frame's launches; then
+    warm medians in turns (eager, captured, captured, eager) x rounds, and
+    with `profile` the device ms and busy share of one captured run."""
+    import torch
+
+    from stereo_matchin_tpu_torch.models import tiled
+    from stereo_matchin_tpu_torch.utils import call_stage, graphs
+
+    left, right = pair
+    H, W = left.shape[:2]
+    driver = (tiled.asw_pipeline_tiled if method == "asw"
+              else tiled.cross_pipeline_tiled)
+
+    def frame(run=graphs.replay_stage):
+        return driver(left, right, cfg, bands, wavefront=wf, run=run)
+
+    n = band_count(method, H, cfg, bands, wf)
+    route = "wavefront" if wf else "halo"
+    want = (expected_asw_launches(cfg, n, route, kernels) if method == "asw"
+            else expected_cross_launches(n, kernels))
+
+    def checked(mode, run):
+        kernels.reset_launches()
+        out, ms = timed(lambda: frame(run))
+        check_launches(f"{label} {mode}", dict(kernels.LAUNCHES), want)
+        for name, g, w in zip(("map 0", "map 1"), out, whole):
+            if not torch_equal(g, w):
+                raise AssertionError(f"{label} {mode}: {name} differs from "
+                                     f"the whole frame's")
+        return out, ms
+
+    graphs.STAGES.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    first, first_ms = checked("first call", graphs.replay_stage)
+    first_peak = torch.cuda.max_memory_reserved() - base
+    st = graphs.STAGES.stats()
+    steps = steps_held()
+    torch.cuda.empty_cache()
+    held = free0 - torch.cuda.mem_get_info()[0]
+    torch.cuda.reset_peak_memory_stats()
+    got, replay_ms = checked("replayed", graphs.replay_stage)
+    replay_peak = torch.cuda.max_memory_reserved() - base
+    again = graphs.STAGES.stats()
+    if again["graphs"] != st["graphs"] or again["capture_s"] != st[
+            "capture_s"]:
+        raise AssertionError(f"{label}: the second call captured")
+    eager, eager_ms = checked("eager", call_stage)
+    for a, b, c in zip(first, got, eager):
+        if not (torch.equal(a, b) and torch.equal(b, c)):
+            raise AssertionError(f"{label}: a replayed map differs")
+    del first, got, eager
+    rep = {"bands": n, "graphs": st["graphs"], "graphs_by_step": steps,
+           "warmup_s": st["warmup_s"], "capture_s": st["capture_s"],
+           "pool_bytes": st["pool_bytes"], "slot_bytes": st["input_bytes"],
+           "first_call_ms": first_ms, "replayed_ms": replay_ms,
+           "eager_ms": eager_ms, "first_call_peak_reserved_bytes":
+           first_peak, "replay_peak_reserved_bytes": replay_peak,
+           "held_after_first_call_bytes": held}
+    print(f"  {label}: {n} bands bit-equal captured, replayed, eager and "
+          f"whole; graphs {steps} ({st['warmup_s']:.3f} s of warm-ups, "
+          f"{st['capture_s']:.3f} s of captures), pool "
+          f"{st['pool_bytes'] / 1e9:.3f} GB, slots "
+          f"{st['input_bytes'] / 1e9:.3f} GB; first call {first_ms:.1f} ms "
+          f"(peak reserved {first_peak / 1e9:.3f} GB, held after "
+          f"{held / 1e9:.3f} GB), replayed {replay_ms:.1f} ms (peak reserved "
+          f"{replay_peak / 1e9:.3f} GB), eager {eager_ms:.1f} ms; {smi}")
+    if rounds:
+        ms = {"eager": [], "captured": []}
+        for _ in range(rounds):
+            for mode in ("eager", "captured", "captured", "eager"):
+                run = call_stage if mode == "eager" else graphs.replay_stage
+                ms[mode].append(checked(mode, run)[1])
+        rep["turns_ms"] = ms
+        rep["median_ms"] = {m: statistics.median(v) for m, v in ms.items()}
+        print(f"  {label}: warm medians of {len(ms['eager'])} in turns: "
+              f"captured {rep['median_ms']['captured']:.1f} ms, eager "
+              f"{rep['median_ms']['eager']:.1f} ms (captured "
+              + ", ".join(f"{v:.1f}" for v in ms["captured"]) + "; eager "
+              + ", ".join(f"{v:.1f}" for v in ms["eager"]) + f"); {smi}")
+    if profile:
+        host_ms, device_ms, launches = busy_share(frame)
+        rep |= {"profiled_host_ms": host_ms, "device_ms": device_ms,
+                "device_launches": launches}
+        print(f"  {label}: one captured run profiled: {device_ms:.1f} ms "
+              f"device in {launches} launches over {host_ms:.1f} ms host "
+              f"({device_ms / host_ms * 100:.1f}% busy); {smi}")
+    return rep
+
+
+def band_phase(cfg, kernels, c3_whole, smi):
+    """Phase 23: (a) the 400x450 scene in 2 and 3 bands, both methods, both
+    drivers; (b) config 3 in 5 bands, both methods, both drivers, against
+    the whole-frame maps of phases 15 and 16, timed in turns and profiled;
+    (c) the config-3 ASW wavefront in 8 bands.  Every captured banded
+    frame's peak reserved memory is held against the band plan
+    (models.tiled.asw_plan_bytes)."""
+    import torch
+
+    from stereo_matchin_tpu_torch.models import asw, cross_based
+    from stereo_matchin_tpu_torch.utils import graphs
+
+    graphs.clear_caches()
+    report = {"400x450": {}, "config3": {}}
+    print(" (a) 400x450 scene, REFERENCE_CONFIG (ASW aggr_d_chunks 3; the "
+          "3-band ASW wavefront at r 3, k 2)")
+    scene = scene_pair(5, 400, 450, cfg.d_max)
+    asw3 = cfg.replace(aggr_d_chunks=3)
+    cases = [("asw", asw3, 2, True), ("asw", asw3, 2, False),
+             ("asw", asw3.replace(r_iters=3, k_iters=2), 3, True),
+             ("asw", asw3, 3, False), ("cross", cfg, 2, True),
+             ("cross", cfg, 2, False), ("cross", cfg, 3, True),
+             ("cross", cfg, 3, False)]
+    for method, c, bands, wf in cases:
+        if method == "asw":
+            res = asw.asw_pipeline_impl(*scene, c)
+            whole = (res.disparity, res.filled)
+        else:
+            res = cross_based.cross_pipeline_impl(*scene, c)
+            whole = (res.initial, res.final)
+        label = (f"400x450 {method} {'wavefront' if wf else 'halo'} "
+                 f"{bands} bands" + (" (r 3, k 2)" if c.k_iters == 2 else ""))
+        report["400x450"][label] = band_case(label, method, c, bands, wf,
+                                             scene, whole, kernels, smi)
+    del scene, res, whole
+    print(f" (b) config 3 in {CONFIG3_BANDS} bands, against phases 15 and "
+          f"16's whole frames")
+    H, W = CONFIG3_HW
+    c3 = {"asw": cfg.replace(d_max=279, aggr_d_chunks=4),
+          "cross": cfg.replace(d_max=279)}
+    # The pairs of phases 15 and 16, whose whole-frame maps are c3_whole.
+    pairs = {"asw": config3_pair(3),
+             "cross": scene_pair(4, H, W, c3["cross"].d_max)}
+    fields = {"asw": ("disparity", "filled"), "cross": ("initial", "final")}
+    over = []
+    for method in ("asw", "cross"):
+        whole = tuple(c3_whole[method][f].cuda() for f in fields[method])
+        for wf in (True, False):
+            label = (f"config 3 {method} {'wavefront' if wf else 'halo'} "
+                     f"{CONFIG3_BANDS} bands")
+            rep = band_case(label, method, c3[method], CONFIG3_BANDS, wf,
+                            pairs[method], whole, kernels, smi,
+                            rounds=BAND_ROUNDS, profile=True)
+            report["config3"][label] = rep
+            if method == "asw":
+                over += against_plan(label, rep, c3[method], CONFIG3_BANDS,
+                                     wf)
+        if method == "asw":
+            print(" (c) config 3 ASW wavefront in 8 bands")
+            label = "config 3 asw wavefront 8 bands"
+            rep = band_case(label, method, c3[method], 8, True,
+                            pairs[method], whole, kernels, smi, rounds=1)
+            report["config3"][label] = rep
+            over += against_plan(label, rep, c3[method], 8, True)
+        del whole
+    del pairs
+    graphs.clear_caches()
+    torch.cuda.empty_cache()
+    if over:
+        raise AssertionError("captured banded frames above the band plan: "
+                             + "; ".join(over))
+    print("  every captured config-3 ASW banded frame's peak reserved memory "
+          "lies within the band plan")
+    return report
+
+
+def against_plan(label, rep, cfg, bands, wf):
+    """The band plan of a captured config-3 ASW banded frame
+    (models.tiled.asw_plan_bytes of its largest band) beside its peaks,
+    into `rep`; returns the peaks above it."""
+    from stereo_matchin_tpu_torch.models import tiled
+
+    H, W = CONFIG3_HW
+    plan = tiled.asw_plan_bytes(kept_rows(H, cfg, bands, wf), W, cfg,
+                                banded=True)
+    rep["plan_bytes"] = plan
+    peaks = ("first_call_peak_reserved_bytes", "replay_peak_reserved_bytes",
+             "held_after_first_call_bytes")
+    print(f"  {label}: band plan {plan / 1e9:.3f} GB against the peak "
+          f"reserved of the first call {rep[peaks[0]] / 1e9:.3f} GB, of a "
+          f"replayed frame {rep[peaks[1]] / 1e9:.3f} GB, and the bytes held "
+          f"after the first call {rep[peaks[2]] / 1e9:.3f} GB")
+    return [f"{label} {k} {rep[k] / 1e9:.3f} > {plan / 1e9:.3f} GB"
+            for k in peaks if rep[k] > plan]
+
+
 def codes(img):
     from stereo_matchin_tpu_torch import ops
 
@@ -3026,7 +3281,6 @@ def main() -> int:
         {"asw": {f: getattr(res_k, f) for f in SHARDED_MAPS["asw"]},
          "cross": {f: getattr(cross_k, f) for f in SHARDED_MAPS["cross"]}},
         c3_whole, smi)
-    del c3_whole
 
     phase("20. run CLI (--method both, --method cross) decoding ahead over "
           "8 synthetic 375x450 scenes, against the inline loop; "
@@ -3054,6 +3308,15 @@ def main() -> int:
           "harness")
     print(json.dumps({"stage_graphs": stage_phase(cfg, kernels, left, right,
                                                   smi), "card": smi}))
+
+    phase(f"23. the band drivers' steps replayed from CUDA graphs against "
+          f"the eager steps: 400x450 in 2 and 3 bands, config 3 in "
+          f"{CONFIG3_BANDS} bands (both methods, wavefront and halo) and in "
+          f"8 (ASW wavefront), bit-equal to the whole frames, timed in turns, "
+          f"captured peaks against the band plan")
+    print(json.dumps({"band_graphs": band_phase(cfg, kernels, c3_whole, smi),
+                      "card": smi}))
+    del c3_whole
 
     path_launches = {
         "asw": launches, "cross": cross_launches,

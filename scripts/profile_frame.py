@@ -2,6 +2,8 @@
 """Device time of one frame by kernel, under torch.profiler.
 
     python3 scripts/profile_frame.py [--method asw|cross] [--config3] [--stages]
+    python3 scripts/profile_frame.py [--method asw|cross] [--config3]
+        --bands N [--route wavefront|halo] [--eager]
 
 Runs the ASW pipeline (`--method asw`, the default) or the cross-based
 pipeline (`--method cross`) of the PyTorch port through the CUDA kernels
@@ -16,8 +18,15 @@ eagerly through its stage runner (the stages and names of the per-stage
 harness, bench/harness.py), each stage inside a
 torch.profiler.record_function range, and it also prints the device time
 of the kernels each stage launched and what no stage launched (the UNORM8
-round trips and other glue between stages).  Needs an NVIDIA GPU; prints
-the card's nvidia-smi name and power limit beside the numbers.
+round trips and other glue between stages).  With --bands N the frame is
+the band driver in N bands (models/tiled.py; --route wavefront, the
+default, or halo), its band steps replayed from CUDA graphs, or run
+eagerly with --eager (utils.call_stage); it also prints per band its
+device ms, kernel launches, host ms to dispatch it and its busy share
+(device ms over the span from its first kernel's start to its last
+kernel's end), beside one unprofiled frame's host ms.  Needs an NVIDIA
+GPU; prints the card's nvidia-smi name and power limit beside the
+numbers.
 """
 
 from __future__ import annotations
@@ -42,7 +51,15 @@ def main() -> int:
     ap.add_argument("--config3", action="store_true")
     ap.add_argument("--stages", action="store_true",
                     help="also the device time by pipeline stage")
+    ap.add_argument("--bands", type=int, default=0,
+                    help="run the band driver in this many bands")
+    ap.add_argument("--route", choices=("wavefront", "halo"),
+                    default="wavefront")
+    ap.add_argument("--eager", action="store_true",
+                    help="with --bands: run the band steps eagerly")
     args = ap.parse_args()
+    if args.bands and args.stages:
+        ap.error("--bands and --stages are exclusive")
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: needs an NVIDIA GPU")
     smi = subprocess.run(["nvidia-smi", "-i", "0",
@@ -70,7 +87,18 @@ def main() -> int:
         with record_function(name):
             return fn(*a)
 
-    if args.method == "asw":
+    bands = BandRanges(stages, args.eager)
+    if args.bands:
+        from stereo_matchin_tpu_torch.models import tiled
+
+        driver = (tiled.asw_pipeline_tiled if args.method == "asw"
+                  else tiled.cross_pipeline_tiled)
+
+        def pipeline(left, right, cfg):
+            bands.start()
+            return driver(left, right, cfg, args.bands,
+                          wavefront=args.route == "wavefront", run=bands.run)
+    elif args.method == "asw":
         def pipeline(left, right, cfg):
             if not args.stages:
                 return asw.asw_pipeline(left, right, cfg)
@@ -84,6 +112,10 @@ def main() -> int:
     left, right = random_pair(np.random.default_rng(3), H, W)
     pipeline(left, right, cfg)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipeline(left, right, cfg)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -98,8 +130,12 @@ def main() -> int:
     rows.sort(key=lambda e: e.device_time_total, reverse=True)
     device_ms = sum(e.device_time_total for e in rows) / 1e3
     launches = sum(e.count for e in rows)
-    print(f"{args.method} frame {H}x{W}, d_max {cfg.d_max}, aggr_d_chunks "
-          f"{cfg.aggr_d_chunks}: {host_ms:.1f} ms host (profiled), "
+    what = (f"{args.route} bands ({args.bands}, "
+            f"{'eager' if args.eager else 'replayed'})" if args.bands
+            else "frame")
+    print(f"{args.method} {what} {H}x{W}, d_max {cfg.d_max}, aggr_d_chunks "
+          f"{cfg.aggr_d_chunks}: {plain_ms:.1f} ms host unprofiled, "
+          f"{host_ms:.1f} ms host (profiled), "
           f"{device_ms:.1f} ms device ({device_ms / host_ms * 100:.1f}% busy) "
           f"in {launches} device launches; {smi}")
     # The 20 largest rows, and every other row of the port's own kernels
@@ -111,21 +147,96 @@ def main() -> int:
                   f"{e.key[:90]}")
     if args.stages:
         print_stages(prof, stages, device_ms)
+    if args.bands:
+        bands.report(trace_events(prof))
     return 0
+
+
+class BandRanges:
+    """The stage runner of a profiled band frame: each band step inside a
+    record_function range of its own ("band i <step name>"), through
+    utils.replay_stage, or eagerly (utils.call_stage); keeps the host ms
+    each band took to dispatch."""
+
+    def __init__(self, stages: set, eager: bool):
+        from stereo_matchin_tpu_torch.utils import call_stage, replay_stage
+
+        self.stages, self.inner = stages, call_stage if eager else replay_stage
+        self.host_ms = []
+
+    def start(self):
+        self.host_ms = []
+
+    def run(self, name, fn, *args):
+        from torch.profiler import record_function
+
+        label = f"band {len(self.host_ms)} {name}"
+        self.stages.add(label)
+        t0 = time.perf_counter()
+        with record_function(label):
+            out = self.inner(name, fn, *args)
+        self.host_ms.append((label, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def report(self, events):
+        """Per band: device ms, launches, host ms to dispatch it, and its
+        busy share over its device span."""
+        from stereo_matchin_tpu_torch.utils.profiling import stage_device_ms
+
+        by_band = stage_device_ms(events, self.stages)
+        spans = band_spans(events, self.stages)
+        for label, host in self.host_ms:
+            ms, n = by_band.get(label, (0.0, 0))
+            span = spans.get(label, 0.0)
+            print(f"  {label}: {ms:.3f} ms device in {n} launches, "
+                  f"{host:.1f} ms host to dispatch, busy "
+                  f"{ms / span * 100 if span else 0.0:.1f}% of its "
+                  f"{span:.3f} ms device span")
+
+
+def trace_events(prof) -> list:
+    import json
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return json.loads(path.read_text())["traceEvents"]
+
+
+def band_spans(events, names) -> dict:
+    """{range name: ms from the start of the first device event it launched
+    to the end of the last} (launches matched as
+    utils.profiling.stage_device_ms matches them)."""
+    import bisect
+
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {})}
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name") in names)
+    starts = [r[0] for r in ranges]
+    first, last = {}, {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launched_at.get(e.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        if i < 0 or t > ranges[i][1]:
+            continue
+        name = ranges[i][2]
+        first[name] = min(first.get(name, e["ts"]), e["ts"])
+        last[name] = max(last.get(name, 0.0), e["ts"] + e["dur"])
+    return {k: (last[k] - first[k]) / 1e3 for k in first}
 
 
 def print_stages(prof, stages, device_ms):
     """Device time by stage (utils.profiling.stage_device_ms over the
     profile's Chrome trace)."""
-    import json
-    import tempfile
-
     from stereo_matchin_tpu_torch.utils.profiling import stage_device_ms
 
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        path = pathlib.Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
+    events = trace_events(prof)
     by_stage = stage_device_ms(events, stages)
     spans = sum(e.get("cat") == "user_annotation" and e.get("name") in stages
                 for e in events)

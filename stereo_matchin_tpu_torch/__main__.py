@@ -24,10 +24,11 @@ six.  It decodes the next pairs on a worker thread while the device
 computes the current one (io/loader.py PairLoader, two pairs ahead),
 and copies each pair to the device as it comes.
 --bands N > 1 runs the row-band drivers (models/tiled.py: the wavefront
-strip carry where the band layout allows, halo bands otherwise) and, as
-the JAX CLI does, writes the disparity maps only; --bands 0 picks
-the band count from the card's memory (models.tiled.auto_bands; one band
-on the CPU) and prints it.
+strip carry where the band layout allows, halo bands otherwise; on the
+card each band step replays a CUDA graph, the interior bands one graph)
+and, as the JAX CLI does, writes the disparity maps only; --bands 0 picks
+the band count from the card's memory (models.tiled.auto_bands, planned
+for the captured bands; one band on the CPU) and prints it.
 
 `bench` writes the per-stage TSV (bench/harness.py) to <out>/<device>.tsv.
 `eval` compares each map of a registered pair with the reference's stored

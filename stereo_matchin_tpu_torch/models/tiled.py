@@ -18,6 +18,16 @@ Bands run one after another on the device's stream.  PyTorch's caching
 allocator reuses a freed block in stream order, so a band's workspace is
 free for the next band as soon as the host drops it: no synchronize is
 needed to bound the memory (measured on the card, PERF.md section 5).
+
+Each halo band runs as one step (`_asw_band`, `_cross_halo_band`: the
+eager chain over the band's slice, of which only the maps leave) through
+a stage runner `run(name, fn, *args)`, with cfg and the band's crop as
+its static arguments: on CUDA tensors utils.replay_stage replays each
+step from a CUDA graph, as the JAX package jits its band step, and the
+bands of one slice shape and crop share a graph; utils.call_stage runs
+the steps eagerly.  The band graphs of a frame share the stage graphs'
+pool and are held for the frame (the memory rule in utils/graphs.py), so
+a captured banded frame holds about its largest band's peak.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import Callable
 import torch
 
 from ..config import StereoConfig
+from ..utils import graphs
 from . import asw as asw_mod
 from . import cross_based as cross_mod
 
@@ -40,27 +51,36 @@ def cross_reach(cfg: StereoConfig) -> int:
     return 3 * cfg.arm_len + 4
 
 
-#: The ASW memory plan, in cost-volume rows (D * W * 4 bytes each), from
-#: torch.cuda.max_memory_allocated() at BASELINE config 3 (2880 x 1988,
-#: d_max 279, radius 16, r 7, k 6, aggr_d_chunks 4) on an NVIDIA H100 80GB
-#: HBM3 (PERF.md section 5).  The whole frame peaked at 3.24 volume rows
-#: per row.  The wavefront's interior bands peaked at 2751 and 3318 volume
-#: rows with 256 and 384 kept rows: 4.43 per kept row on a fixed 365 rows
-#: (1.62 reaches: strips, windows and the postaggregate's 2*keep extra
-#: rows); halo bands lie below that line.  The plan rounds them up.  At
-#: config 3 the volumes outweigh the 2*radius + 1 tap weight strips; a
-#: config with few disparities against its taps is outside what was
-#: measured.  The JAX package's 10.5 volumes per row was XLA's plan on a
-#: TPU.
-_ASW_ROW_VOLUMES = 3.3           # whole frame, per row
-_ASW_BAND_ROW_VOLUMES = 4.5      # band, per kept row
+#: The ASW memory plan, in cost-volume rows (D * W * 4 bytes each), of a
+#: frame or band run as the entries run them on the card: captured as CUDA
+#: graphs.  Measured as the peak of torch.cuda.max_memory_reserved() over
+#: a first call, where the captures happen, at BASELINE config 3 (2880 x
+#: 1988, d_max 279, radius 16, r 7, k 6, aggr_d_chunks 4) on an NVIDIA
+#: H100 80GB HBM3 (PERF.md, sections 5 and 6).  The captured whole frame
+#: peaked at 28.02 GB, 4.37 volume rows per row: its pool and the clone
+#: of its result, the aggregated volume among them.  A captured banded
+#: frame holds one pool for its band graphs (about its largest band's
+#: peak, which eager bands reach at 4.43 volume rows per kept row on a
+#: fixed 1.62 reaches) and, while a band graph's first call warms it up
+#: eagerly, that band's peak beside it: 26.25, 18.26 and 17.62 GB for 5
+#: wavefront, 5 halo and 8 wavefront bands, 9.75, 7.25 and 8.55 volume
+#: rows per (largest band's kept rows + 1.7 reaches).  A later frame
+#: replays at 16.83, 12.05 and 14.15 GB.  The plan rounds the first calls
+#: up, so auto_bands picks no band count whose captured first frame does
+#: not fit.  At config 3 the volumes outweigh the 2*radius + 1 tap weight
+#: strips; a config with few disparities against its taps is outside what
+#: was measured.  The JAX package's 10.5 volumes per row was XLA's plan on
+#: a TPU.
+_ASW_ROW_VOLUMES = 4.6           # whole frame, per row
+_ASW_BAND_ROW_VOLUMES = 10.5     # band, per (kept row + fixed rows)
 _ASW_BAND_REACHES = 1.7          # band, fixed, in asw_reach rows
 
 
 def asw_plan_bytes(rows: int, width: int, cfg: StereoConfig,
                    banded: bool) -> float:
-    """Planned peak device memory of an ASW frame of `rows` rows, or of a
-    band of `rows` kept rows (banded=True)."""
+    """Planned peak device memory of a captured ASW frame of `rows` rows,
+    or of a captured banded frame whose largest band keeps `rows` rows
+    (banded=True), its first call included."""
     if banded:
         volume_rows = _ASW_BAND_ROW_VOLUMES * (
             rows + _ASW_BAND_REACHES * asw_reach(cfg))
@@ -104,36 +124,52 @@ def auto_bands(shape, cfg: StereoConfig, hbm_bytes: int | None = None,
                      f"disparities is planned to fit in {budget:.3g} bytes")
 
 
-def _run_banded(run_band: Callable, left, right, reach: int, num_bands: int,
-                band_crop: Callable = None):
-    """Generic band loop.  run_band(left_slice, right_slice, crop) -> dict of
-    (rows, W) maps; band_crop(halo_top, halo_bot) -> rows the pipeline
-    itself sheds from each side mid-run ((0, 0) when None).  Returns the
-    dict of whole-frame maps."""
+def _run_banded(run, name: str, step: Callable, left, right, cfg, reach: int,
+                num_bands: int, band_crop: Callable = None):
+    """Generic band loop.  Each band's slice goes through run(name, step,
+    l, r, cfg[, crop]) -> maps of its rows (a tuple); band_crop(halo_top,
+    halo_bot) -> rows the step itself sheds from each side mid-run, passed
+    as its crop (no crop when None).  Returns the tuple of whole-frame
+    maps."""
     H = left.shape[0]
     band = math.ceil(H / num_bands)
     pieces = []
-    for b in range(num_bands):
-        y0, y1 = b * band, min(H, (b + 1) * band)
-        if y0 >= y1:
-            break
-        lo, hi = max(0, y0 - reach), min(H, y1 + reach)
-        crop = band_crop(y0 - lo, hi - y1) if band_crop else (0, 0)
-        out = run_band(left[lo:hi], right[lo:hi], crop)
-        off = y0 - lo - crop[0]
-        pieces.append({k: v[off:off + (y1 - y0)] for k, v in out.items()})
-    return {k: torch.cat([p[k] for p in pieces], dim=0) for k in pieces[0]}
+    with graphs.STAGES.hold():
+        for b in range(num_bands):
+            y0, y1 = b * band, min(H, (b + 1) * band)
+            if y0 >= y1:
+                break
+            lo, hi = max(0, y0 - reach), min(H, y1 + reach)
+            if band_crop:
+                crop = band_crop(y0 - lo, hi - y1)
+                maps = run(name, step, left[lo:hi], right[lo:hi], cfg, crop)
+            else:
+                crop = (0, 0)
+                maps = run(name, step, left[lo:hi], right[lo:hi], cfg)
+            off = y0 - lo - crop[0]
+            pieces.append([m[off:off + (y1 - y0)] for m in maps])
+    return tuple(torch.cat(p, dim=0) for p in zip(*pieces))
+
+
+def _asw_band(l, r, cfg: StereoConfig, crop: tuple):
+    """One halo band: asw_pipeline_impl over the slice with its crop, of
+    which only (disparity, filled) leave (the JAX package's
+    _asw_band_jit): the (D, H, W) volume stays inside the step."""
+    res = asw_mod.asw_pipeline_impl(l, r, cfg, crop)
+    return res.disparity, res.filled
 
 
 def asw_pipeline_tiled(left, right, cfg: StereoConfig, num_bands: int,
-                       wavefront: str | bool = "auto"):
+                       wavefront: str | bool = "auto",
+                       run=graphs.replay_stage):
     """Banded ASW run; returns (disparity, filled), equal to the whole-frame
     asw_pipeline's maps.
 
     wavefront: "auto" routes to the strip-carrying driver
     (models/wavefront.py, no halo recompute) whenever its band layout
     holds; True forces it (raising where it does not); False forces the
-    halo-recompute band loop below."""
+    halo-recompute band loop below.  run: the stage runner of the band
+    steps, replaying CUDA graphs by default (utils.call_stage: eager)."""
     if wavefront not in ("auto", True, False):
         raise ValueError(f"wavefront must be 'auto', True or False, got "
                          f"{wavefront!r}")
@@ -141,28 +177,22 @@ def asw_pipeline_tiled(left, right, cfg: StereoConfig, num_bands: int,
         from . import wavefront as wf
 
         if wf.wavefront_supported(left.shape, cfg, num_bands):
-            return wf.asw_pipeline_wavefront(left, right, cfg, num_bands)
+            return wf.asw_pipeline_wavefront(left, right, cfg, num_bands,
+                                             run=run)
         if wavefront is True:
             raise ValueError(
                 "wavefront=True but the wavefront band layout is "
                 "unsupported at this geometry/config")
-    reach = asw_reach(cfg)
     # The aggregation needs the whole halo; everything after it reaches
     # only k*radius + 1 rows, so each band sheds the rest right after the
-    # aggregation (asw_pipeline's crop).  The bands run eagerly: a captured
-    # graph per band shape would hold the first, middle and last bands'
-    # peaks at once, the memory the bands exist to bound.
+    # aggregation (asw_pipeline's crop).
     keep = cfg.k_iters * cfg.radius + 1
-
-    def run_band(l, r, crop):
-        res = asw_mod.asw_pipeline_impl(l, r, cfg, crop)
-        return {"disparity": res.disparity, "filled": res.filled}
 
     def band_crop(h_top, h_bot):
         return max(0, h_top - keep), max(0, h_bot - keep)
 
-    out = _run_banded(run_band, left, right, reach, num_bands, band_crop)
-    return out["disparity"], out["filled"]
+    return _run_banded(run, "asw_band", _asw_band, left, right, cfg,
+                       asw_reach(cfg), num_bands, band_crop)
 
 
 def translation_invariant(cfg: StereoConfig, tensor) -> StereoConfig:
@@ -181,15 +211,25 @@ def translation_invariant(cfg: StereoConfig, tensor) -> StereoConfig:
     return cfg
 
 
+def _cross_halo_band(l, r, cfg: StereoConfig):
+    """One cross halo band: cross_pipeline_impl over the slice, of which
+    only (initial, final) leave."""
+    res = cross_mod.cross_pipeline_impl(l, r, cfg)
+    return res.initial, res.final
+
+
 def cross_pipeline_tiled(left, right, cfg: StereoConfig, num_bands: int,
-                         wavefront: str | bool = "auto"):
+                         wavefront: str | bool = "auto",
+                         run=graphs.replay_stage):
     """Banded cross-method run; returns (initial, final), equal to the
     whole-frame cross_pipeline's maps with a translation-invariant OII
     route (see translation_invariant).
 
     wavefront: "auto" routes to the strip-carrying driver
     (models/wavefront_cross.py) whenever the band geometry supports the
-    strips; True forces it; False forces the halo-recompute band loop."""
+    strips; True forces it; False forces the halo-recompute band loop.
+    run: the stage runner of the band steps, replaying CUDA graphs by
+    default (utils.call_stage: eager)."""
     if wavefront not in ("auto", True, False):
         raise ValueError(f"wavefront must be 'auto', True or False, got "
                          f"{wavefront!r}")
@@ -198,15 +238,11 @@ def cross_pipeline_tiled(left, right, cfg: StereoConfig, num_bands: int,
         from . import wavefront_cross as wfc
 
         if wfc.cross_wavefront_supported(left.shape, cfg, num_bands):
-            return wfc.cross_pipeline_wavefront(left, right, cfg, num_bands)
+            return wfc.cross_pipeline_wavefront(left, right, cfg, num_bands,
+                                                run=run)
         if wavefront is True:
             raise ValueError(
                 "wavefront=True but the cross wavefront band layout is "
                 "unsupported at this geometry/config")
-
-    def run_band(l, r, crop):                  # eager, as the ASW bands
-        res = cross_mod.cross_pipeline_impl(l, r, cfg)
-        return {"initial": res.initial, "final": res.final}
-
-    out = _run_banded(run_band, left, right, cross_reach(cfg), num_bands)
-    return out["initial"], out["final"]
+    return _run_banded(run, "cross_band", _cross_halo_band, left, right, cfg,
+                       cross_reach(cfg), num_bands)

@@ -31,8 +31,16 @@ tests/test_torch_bands_asw.py).
 Every level of an interior band is the windowed vertical pass (K2
 `asw_pass_win` on CUDA) over [strip ; rows of the level below], then K2's
 horizontal pass, per disparity chunk (cfg.aggr_d_chunks).  The JAX
-package's TPU schedule around it (jit-cache geometry, padded lanes, a
-full-extent ladder over garbage rows) is not ported: it answers TPU costs.
+package's padded lanes and its full-extent ladder over garbage rows are
+not ported: they answer TPU costs.
+
+Each band runs as one step (`_first_band`, `_mid_band`, `_last_band`: its
+weights, its ladder, asw_postaggregate and the cut to its kept rows)
+through a stage runner `run(name, fn, *args)`, with cfg and the band's
+canonical geometry (`_canon`) as its static arguments: on CUDA tensors
+utils.replay_stage replays each step from a CUDA graph, as the JAX
+package jits its band steps, and the interior bands of a lane-aligned
+plan share one graph; utils.call_stage runs the steps eagerly.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import torch
 from ..config import StereoConfig
 from .. import ops
 from ..kernels import use_kernels
+from ..utils import graphs
 from . import asw as asw_mod
 
 
@@ -62,6 +71,28 @@ class _Geom:
 
 def _keep(cfg: StereoConfig) -> int:
     return cfg.k_iters * cfg.radius + 1
+
+
+def _canon(g: _Geom) -> _Geom:
+    """A band's geometry translated to slice-local rows: the static key of
+    its band step (the JAX package's _canon).
+
+    A band step is translation-invariant: every row index it computes is a
+    difference of geometry fields, so stepping at the canonical form gives
+    the same bits, and equal-shape bands share one CUDA graph (the stage
+    runner keys a step by its static arguments' values): with the
+    lane-aligned plan every interior band replays the first interior
+    band's graph.  Where the slice bottom is not clamped (g1 < H) the
+    frame height folds down to g1: no window row reaches past g1 (g1 = e +
+    keep + r*R covers the deepest ladder read), so every frame-bottom
+    comparison is equal-false either way; the frame-top arm of each test
+    is unreachable on a non-first band (plan_bands keeps s - keep - R >=
+    0).  The first band starts at row 0 and is its own canonical form."""
+    if g.first:
+        return g
+    o = g.g0
+    H = (g.g1 if g.g1 < g.H else g.H) - o
+    return _Geom(g.s - o, g.e - o, 0, g.g1 - o, H, g.first, g.last)
 
 
 def plan_bands(H: int, num_bands: int, cfg: StereoConfig, align: int = 128):
@@ -216,13 +247,49 @@ def _wave_aggregate(l, r, w, strips_in, astrip_in, cfg: StereoConfig,
     return acc, strips, astrip
 
 
-def asw_pipeline_wavefront(left, right, cfg: StereoConfig, num_bands: int,
-                           align: int = 128):
-    """Banded ASW run with the strip carry; returns (disparity, filled),
-    equal to the whole-frame asw_pipeline's maps.  Each band computes its
-    weights from its own image slice (models.asw.asw_weights)."""
-    H = left.shape[0]
+def _tail(aggr, w, cfg: StereoConfig, g: _Geom):
+    """asw_postaggregate over a band's aggregated rows [lo, hi), cut to its
+    kept rows [s, e): (disparity, filled)."""
     keep = _keep(cfg)
+    lo = 0 if g.first else g.s - keep
+    hi = min(g.e + keep, g.H)
+    res = asw_mod.asw_postaggregate(aggr, w, cfg, (lo - g.g0, g.g1 - hi))
+    off = g.s - lo
+    return (res.disparity[off:off + g.e - g.s],
+            res.filled[off:off + g.e - g.s])
+
+
+def _first_band(l, r, cfg: StereoConfig, g: _Geom):
+    """The first band, from its image slice [0, g1): (disparity, filled) of
+    its kept rows and the strips it hands the next band."""
+    w = asw_mod.asw_weights(l, r, cfg)
+    aggr, strips, astrip = _first_aggregate(l, r, w, cfg, g)
+    return (*_tail(aggr, w, cfg, g), strips, astrip)
+
+
+def _mid_band(l, r, strips, astrip, cfg: StereoConfig, g: _Geom):
+    """An interior band, from its image slice [g0, g1) and the strips of
+    the band above: (disparity, filled) of its kept rows and the strips it
+    hands the next band (None for the last band)."""
+    w = asw_mod.asw_weights(l, r, cfg)
+    aggr, strips, astrip = _wave_aggregate(l, r, w, strips, astrip, cfg, g)
+    return (*_tail(aggr, w, cfg, g), strips, astrip)
+
+
+def _last_band(l, r, strips, astrip, cfg: StereoConfig, g: _Geom):
+    """The last band: _mid_band, whose strips come back None (g.last)."""
+    return _mid_band(l, r, strips, astrip, cfg, g)
+
+
+def asw_pipeline_wavefront(left, right, cfg: StereoConfig, num_bands: int,
+                           align: int = 128, run=graphs.replay_stage):
+    """Banded ASW run with the strip carry; returns (disparity, filled),
+    equal to the whole-frame asw_pipeline's maps.  Each band step computes
+    its weights from its own image slice (models.asw.asw_weights) and runs
+    through run(name, step, *args) with its canonical geometry: by
+    default replayed from a CUDA graph on CUDA tensors (the frame holds
+    its band graphs, utils.graphs), eagerly with utils.call_stage."""
+    H = left.shape[0]
     geoms = plan_bands(H, num_bands, cfg, align)
     if geoms is None:
         raise ValueError(
@@ -232,21 +299,18 @@ def asw_pipeline_wavefront(left, right, cfg: StereoConfig, num_bands: int,
     asw_mod._check_pair(left, right)
     pieces = []
     strips = astrip = None
-    for g in geoms:
-        l, r = left[g.g0:g.g1], right[g.g0:g.g1]
-        w = asw_mod.asw_weights(l, r, cfg)
-        if g.first:
-            aggr, strips, astrip = _first_aggregate(l, r, w, cfg, g)
-        else:
-            aggr, strips, astrip = _wave_aggregate(l, r, w, strips, astrip,
-                                                   cfg, g)
-        lo = 0 if g.first else g.s - keep
-        hi = min(g.e + keep, H)
-        res = asw_mod.asw_postaggregate(aggr, w, cfg, (lo - g.g0, g.g1 - hi))
-        del aggr
-        off = g.s - lo
-        pieces.append((res.disparity[off:off + g.e - g.s],
-                       res.filled[off:off + g.e - g.s]))
-        del res
+    with graphs.STAGES.hold():
+        for g in geoms:
+            l, r = left[g.g0:g.g1], right[g.g0:g.g1]
+            if g.first:
+                out = run("first_band", _first_band, l, r, cfg, _canon(g))
+            elif g.last:
+                out = run("last_band", _last_band, l, r, strips, astrip, cfg,
+                          _canon(g))
+            else:
+                out = run("mid_band", _mid_band, l, r, strips, astrip, cfg,
+                          _canon(g))
+            disparity, filled, strips, astrip = out
+            pieces.append((disparity, filled))
     return (torch.cat([p[0] for p in pieces], dim=0),
             torch.cat([p[1] for p in pieces], dim=0))

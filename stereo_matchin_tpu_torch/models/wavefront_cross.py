@@ -22,18 +22,36 @@ cross_arms and oii_pass, K5 and K7 on CUDA), and rows past the frame
 bottom H read copies of row H - 1 -- the reference's clamp reads, for the
 vote's arms too.  The maps EQUAL the whole-frame cross_pipeline's with a
 translation-invariant OII route (pinned by tests/test_torch_bands_cross.py).
+
+Each band runs as one step (`_first_band_c`, `_mid_band_c`,
+`_last_band_c` over `_cross_band`) through a stage runner `run(name, fn,
+*args)`, with cfg and the band's canonical geometry (`_canon_c`) as its
+static arguments and the carried strips as three tensor arguments: on
+CUDA tensors utils.replay_stage replays each step from a CUDA graph, as
+the JAX package jits its band steps, and the interior bands share one
+graph; utils.call_stage runs the steps eagerly.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..config import StereoConfig
 from .. import ops
 from ..kernels import oii_route
-from .wavefront import _Geom
+from ..utils import graphs
+from .wavefront import _Geom, _canon
+
+
+class CrossStrips(NamedTuple):
+    """The rows a band hands the next, just above each of its fresh
+    windows."""
+    temp: torch.Tensor       # (D, 2L, W) OII horizontal pass
+    initial: torch.Tensor    # (2L, W) WTA map
+    voted: torch.Tensor      # (2, W) vote
 
 
 def plan_bands_cross(H: int, num_bands: int, cfg: StereoConfig):
@@ -64,6 +82,21 @@ def cross_wavefront_supported(left_shape, cfg: StereoConfig,
     return plan_bands_cross(left_shape[0], num_bands, cfg) is not None
 
 
+def _canon_c(g: _Geom) -> _Geom:
+    """A band's geometry translated to slice-local rows: the static key of
+    its band step (the JAX package's _canon_c; models.wavefront._canon).
+    The step computes only differences of geometry fields, with the rows
+    handed to the kernels (`row0`/`h_glob` of the arms and the OII
+    vertical pass) anchored the same way, so equal-shape interior bands
+    share one CUDA graph.  Where g1 is not clamped (g1 < H) the frame
+    height folds to g1: the deepest read of any stage window is row e + 3L
+    + 1 (arm walks below the temp window) < g1 = e + 3L + 3, so the bottom
+    masks and clamps are equal either way, and the frame-top mask arm is
+    unreachable from the kept rows (plan_bands_cross keeps s - 2L - 1 >=
+    0)."""
+    return _canon(g)
+
+
 def _fix_bottom(x: torch.Tensor, first_virtual: int, axis: int = 0):
     """Rows at and past index `first_virtual` (the frame bottom) become
     copies of the row before it."""
@@ -75,9 +108,9 @@ def _fix_bottom(x: torch.Tensor, first_virtual: int, axis: int = 0):
 
 def _cross_band(l, r, strips, cfg: StereoConfig, g: _Geom):
     """One band.  l/r: image slice rows [g0, g1); strips: None for the
-    first band, else dict(temp=(D, 2L, W), initial=(2L, W), voted=(2, W))
-    of the rows just above each fresh window.  Returns the kept rows of
-    (initial, final) and this band's strips (None for the last band)."""
+    first band, else the CrossStrips of the band above.  Returns the kept
+    rows of (initial, final) and this band's CrossStrips (None for the
+    last band)."""
     L, D, H = cfg.arm_len, cfg.num_disp, g.H
     s, e, g0, g1, first = g.s, g.e, g.g0, g.g1, g.first
     N, M = e - s, L + 1
@@ -121,7 +154,7 @@ def _cross_band(l, r, strips, cfg: StereoConfig, g: _Geom):
                           arm_rows(arms_r, t_lo, t_hi), L, 2)
     del cost
     # temp rows [i_lo - L, t_hi) (from the frame top for the first band).
-    temp = temp_fresh if first else torch.cat([strips["temp"], temp_fresh],
+    temp = temp_fresh if first else torch.cat([strips.temp, temp_fresh],
                                               dim=1)
     y_t = 0 if first else i_lo - L
     aggr = oii_pass(temp, arm_rows(arms_l, y_t, t_hi),
@@ -134,7 +167,7 @@ def _cross_band(l, r, strips, cfg: StereoConfig, g: _Geom):
 
     # initial rows [v_lo - L, i_hi).
     initial = (initial_fresh if first else
-               torch.cat([strips["initial"], initial_fresh], dim=0))
+               torch.cat([strips.initial, initial_fresh], dim=0))
     y_i = 0 if first else v_lo - L
     # Rows past the frame bottom vote with row H-1's ARMS: disparity.cl
     # reads the arms image with the same CLAMP_TO_EDGE as the map, while a
@@ -147,21 +180,43 @@ def _cross_band(l, r, strips, cfg: StereoConfig, g: _Geom):
 
     # voted rows [s - 1, v_hi): the final median's reach.
     voted = (voted_fresh if first else
-             torch.cat([strips["voted"], voted_fresh], dim=0))
+             torch.cat([strips.voted, voted_fresh], dim=0))
     final = ops.median3x3(voted)
     y_v = 0 if first else s - 1
-    out = (initial[s - y_i:e - y_i], final[s - y_v:e - y_v])
+    kept = (initial[s - y_i:e - y_i], final[s - y_v:e - y_v])
     if g.last:
-        return out, None
-    return out, {"temp": temp[:, -2 * L:].contiguous(),
-                 "initial": initial[-2 * L:], "voted": voted[-2:]}
+        return (*kept, None)
+    return (*kept, CrossStrips(temp[:, -2 * L:].contiguous(),
+                               initial[-2 * L:], voted[-2:]))
 
 
-def cross_pipeline_wavefront(left, right, cfg: StereoConfig, num_bands: int):
+def _first_band_c(l, r, cfg: StereoConfig, g: _Geom):
+    """The first band: (initial, final) of its kept rows and its
+    CrossStrips."""
+    return _cross_band(l, r, None, cfg, g)
+
+
+def _mid_band_c(l, r, temp, initial, voted, cfg: StereoConfig, g: _Geom):
+    """An interior band, from the strips of the band above as three
+    tensors: (initial, final) of its kept rows and its CrossStrips (None
+    for the last band)."""
+    return _cross_band(l, r, CrossStrips(temp, initial, voted), cfg, g)
+
+
+def _last_band_c(l, r, temp, initial, voted, cfg: StereoConfig, g: _Geom):
+    """The last band: _mid_band_c, whose strips come back None (g.last)."""
+    return _mid_band_c(l, r, temp, initial, voted, cfg, g)
+
+
+def cross_pipeline_wavefront(left, right, cfg: StereoConfig, num_bands: int,
+                             run=graphs.replay_stage):
     """Banded cross-method run with the strip carry; returns (initial,
     final), equal to the whole-frame cross_pipeline's maps with a
     translation-invariant OII route ("taps" on the CPU, the kernels on
-    CUDA; see models.tiled.translation_invariant)."""
+    CUDA; see models.tiled.translation_invariant).  Each band step runs
+    through run(name, step, *args) with its canonical geometry: by
+    default replayed from a CUDA graph on CUDA tensors (the frame holds
+    its band graphs, utils.graphs), eagerly with utils.call_stage."""
     from .tiled import translation_invariant
 
     cfg = translation_invariant(cfg, left)
@@ -176,9 +231,19 @@ def cross_pipeline_wavefront(left, right, cfg: StereoConfig, num_bands: int):
                          f"and {tuple(right.shape)}")
     pieces = []
     strips = None
-    for g in geoms:
-        out, strips = _cross_band(left[g.g0:g.g1], right[g.g0:g.g1], strips,
-                                  cfg, g)
-        pieces.append(out)
+    with graphs.STAGES.hold():
+        for g in geoms:
+            l, r = left[g.g0:g.g1], right[g.g0:g.g1]
+            if g.first:
+                out = run("first_band_c", _first_band_c, l, r, cfg,
+                          _canon_c(g))
+            elif g.last:
+                out = run("last_band_c", _last_band_c, l, r, *strips, cfg,
+                          _canon_c(g))
+            else:
+                out = run("mid_band_c", _mid_band_c, l, r, *strips, cfg,
+                          _canon_c(g))
+            initial, final, strips = out
+            pieces.append((initial, final))
     return (torch.cat([p[0] for p in pieces], dim=0),
             torch.cat([p[1] for p in pieces], dim=0))

@@ -86,11 +86,36 @@ frees the same way and runs again.  The stage runner never runs inside a
 capture: the eager chains (`asw_pipeline_impl`, `cross_pipeline_impl`)
 keep `utils.call_stage` as their runner, since the frame entries capture
 them whole.
+
+The band drivers (models/tiled.py, models/wavefront.py,
+models/wavefront_cross.py) run each band as one stage through the same
+runner, keyed by the band's canonical geometry, so the interior bands of
+a frame share one graph: the port's counterpart of the JAX package's
+band-step jits.  Their memory rule:
+
+  * a driver's band graphs share the stage graphs' pool, so a captured
+    banded frame holds about its largest band's peak, not the sum of its
+    bands' peaks;
+  * the strips a band hands the next pass through the static input slots
+    (the port's form of the JAX donation): one slot per strip, whatever
+    band reads it;
+  * a frame holds its own graphs (`StageGraphs.hold`): while it runs,
+    making room and a warm-up out of memory drop captured frames, never
+    the stage graphs, since they share the pool with the graphs the frame
+    already captured; with nothing left to drop a first call raises.  A
+    frame whose bands outgrow the card fails on its first call, instead
+    of capturing every band again on every frame.
+
+A stage's arguments may not nest a tensor in a tuple, list or dict: its
+key would hold the tensor's identity and its graph would read the tensor
+from where it was captured (`stage_key` refuses it).  Its result may nest
+tensors in tuples, NamedTuples and dicts; each is cloned.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import threading
 import time
@@ -123,15 +148,17 @@ def add_launches(counts: dict, delta: dict) -> None:
 
 
 def map_tensors(fn, out):
-    """`out` with fn applied to each tensor in it: a tensor, or tuples of
-    them (NamedTuples keep their type), nested; anything else is returned
-    as it is."""
+    """`out` with fn applied to each tensor in it: a tensor, or tuples,
+    lists and dicts of them (NamedTuples and dict types kept), nested;
+    anything else is returned as it is."""
     if isinstance(out, torch.Tensor):
         return fn(out)
     if isinstance(out, tuple) and hasattr(out, "_fields"):
         return type(out)(*(map_tensors(fn, v) for v in out))
-    if isinstance(out, tuple):
-        return tuple(map_tensors(fn, v) for v in out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(map_tensors(fn, v) for v in out)
+    if isinstance(out, dict):
+        return type(out)((k, map_tensors(fn, v)) for k, v in out.items())
     return out
 
 
@@ -360,11 +387,32 @@ def _fn_key(fn):
             tuple(sorted((k, _arg_key(v)) for k, v in fn.keywords.items())))
 
 
+def _nests_tensor(a) -> bool:
+    if isinstance(a, torch.Tensor):
+        return True
+    if isinstance(a, (tuple, list, set, frozenset)):
+        return any(_nests_tensor(v) for v in a)
+    if isinstance(a, dict):
+        return any(_nests_tensor(v) for v in (*a.keys(), *a.values()))
+    return False
+
+
+def check_args(name: str, args) -> None:
+    """Refuse a stage argument that nests a tensor in a container."""
+    for i, a in enumerate(args):
+        if not isinstance(a, torch.Tensor) and _nests_tensor(a):
+            raise ValueError(
+                f"stage {name}: argument {i} ({type(a).__name__}) nests a "
+                f"tensor, which its graph would read from where it was "
+                f"captured; pass each tensor as an argument of its own")
+
+
 def stage_key(name: str, fn, args) -> tuple:
     """The cache key of one stage call: its name, fn (a functools.partial
     by its function, arguments and keywords) and each argument, a tensor
     by its shape, dtype and device and anything else by its type and
-    value."""
+    value.  An argument that nests a tensor in a container is refused."""
+    check_args(name, args)
     return (name, _fn_key(fn), tuple(_arg_key(a) for a in args))
 
 
@@ -410,12 +458,29 @@ class StageGraphs:
         self.pools = {}           # device -> the pool its graphs share
         self.done = {}            # device -> event after the last clones
         self._lock = threading.Lock()
+        self._holds = 0           # open hold() contexts
+        self._held = set()        # stage keys called inside them
+
+    @contextlib.contextmanager
+    def hold(self):
+        """Within it, the stage graphs called are held: free_memory never
+        drops them (a band driver's frame; the module's docstring).  It
+        touches no `torch.cuda`."""
+        self._holds += 1
+        try:
+            yield
+        finally:
+            self._holds -= 1
+            if not self._holds:
+                self._held.clear()
 
     def call(self, name: str, fn, args, start=None, end=None):
         """fn(*args) as stage `name`; on CUDA tensors its graph's replay,
         with `start` and `end` (CUDA events) recorded on the current stream
         just before and just after it: the copies into the static inputs
-        and the clones of the outputs fall outside them."""
+        and the clones of the outputs fall outside them.  An argument that
+        nests a tensor is refused on every device (check_args)."""
+        check_args(name, args)
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         if not tensors or not tensors[0].is_cuda:
             return fn(*args)
@@ -432,6 +497,8 @@ class StageGraphs:
             if graph is None:
                 graph = self.first_call(name, fn, args, tensors, dev)
                 self.graphs[key] = graph
+            if self._holds:
+                self._held.add(key)
             graph.load(tensors)
             stream = torch.cuda.current_stream()
             if start is not None:
@@ -469,13 +536,14 @@ class StageGraphs:
         return graph
 
     def free_memory(self) -> bool:
-        """Evict the oldest captured frame, or else every stage graph;
-        False when there is nothing left to free."""
+        """Evict the oldest captured frame, or else every stage graph
+        unless a hold holds one of them; False when there is nothing left
+        to free."""
         with CACHE._lock:
             if CACHE.frames:
                 CACHE.evict_oldest()
                 return True
-        if not self.graphs:
+        if not self.graphs or not self._held.isdisjoint(self.graphs):
             return False
         self.clear()
         return True

@@ -1050,3 +1050,85 @@ def test_captured_debug_equals_its_eager_chain(k_iters, fresh_graphs):
         for g, w in zip(graphs.leaves(got), graphs.leaves(want)):
             assert torch.equal(g, w)
     assert len(fresh_graphs.frames) == 1
+
+
+# --- the band steps replayed from CUDA graphs (models/tiled.py,
+# models/wavefront.py, models/wavefront_cross.py) ----------------------------
+
+REF_CFG = StereoConfig()
+# (method, bands, wavefront, config): the 400x450 scene at REFERENCE_CONFIG
+# with aggr_d_chunks 3; its 3 ASW bands hold no wavefront at k = 6 (each
+# band needs 194 rows), so the ASW wavefront in 3 bands runs r = 3, k = 2.
+BAND_CASES = [
+    ("asw", 2, True, REF_CFG.replace(aggr_d_chunks=3)),
+    ("asw", 2, False, REF_CFG.replace(aggr_d_chunks=3)),
+    ("asw", 3, True, REF_CFG.replace(aggr_d_chunks=3, r_iters=3, k_iters=2)),
+    ("asw", 3, False, REF_CFG.replace(aggr_d_chunks=3)),
+    ("cross", 2, True, REF_CFG), ("cross", 2, False, REF_CFG),
+    ("cross", 3, True, REF_CFG), ("cross", 3, False, REF_CFG),
+]
+
+
+def _scene_pair(dev, H, W, d_max, seed):
+    left, right, _, _ = synthetic_scene(np.random.default_rng(seed), H, W,
+                                        d_max)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
+                 for a in (left, right))
+
+
+class _Keys:
+    """An eager stage runner that records each band step's stage key."""
+
+    def __init__(self):
+        self.keys = []
+
+    def run(self, name, fn, *args):
+        self.keys.append(graphs.stage_key(name, fn, args))
+        return fn(*args)
+
+
+@pytest.mark.parametrize("method,bands,wf,cfg", BAND_CASES,
+                         ids=[f"{m}-{b}-{'wavefront' if w else 'halo'}"
+                              for m, b, w, _ in BAND_CASES])
+def test_replayed_band_steps_equal_eager_and_whole_frame(method, bands, wf,
+                                                         cfg, fresh_graphs):
+    """Captured on one scene, replayed on another: the maps bit-equal to
+    the eager steps (run=call_stage) and to the whole frame, a graph per
+    distinct step key, one eager frame's launches a call, nothing captured
+    on the second call, and the first call's maps unchanged by it."""
+    from stereo_matchin_tpu_torch.utils import call_stage
+
+    dev = cuda_device()
+    if method == "asw":
+        driver, impl = tiled.asw_pipeline_tiled, asw.asw_pipeline_impl
+    else:
+        driver, impl = tiled.cross_pipeline_tiled, \
+            cross_based.cross_pipeline_impl
+    results, kept = [], None
+    for seed in (5, 6):
+        left, right = _scene_pair(dev, 400, 450, cfg.d_max, seed)
+        launches, got = _one_frame_launches(
+            lambda: driver(left, right, cfg, bands, wavefront=wf))
+        keys = _Keys()
+        want_launches, want = _one_frame_launches(
+            lambda: driver(left, right, cfg, bands, wavefront=wf,
+                           run=keys.run))
+        assert launches == want_launches and sum(launches.values()) > 0
+        eager = driver(left, right, cfg, bands, wavefront=wf, run=call_stage)
+        whole = impl(left, right, cfg)
+        whole = ((whole.disparity, whole.filled) if method == "asw"
+                 else (whole.initial, whole.final))
+        for g, e, w in zip(got, eager, whole):
+            assert torch.equal(g, e) and torch.equal(g, w)
+        stats = graphs.STAGES.stats()
+        assert stats["graphs"] == len(set(keys.keys)) <= bands
+        if seed == 5:
+            first = stats
+            kept = [m.clone() for m in got]
+        else:
+            assert stats["capture_s"] == first["capture_s"]
+        results.append(got)
+    torch.cuda.synchronize()
+    for m, k in zip(results[0], kept):
+        assert torch.equal(m, k)
+    assert not all(torch.equal(a, b) for a, b in zip(*results))
