@@ -29,9 +29,13 @@ stored maps, synth -> run -> eval --gt, and the debug and batched ASW
 entries, bit-equal to the pipeline.  Phase 19 drives the sharded
 pipelines (parallel/) in one spawn of 4 gloo ranks sharing the card
 (meshes (1,2,2), (1,4,1), (1,1,4) and (2,2,1) at REFERENCE_CONFIG on
-288x384, then config 3 on (1,2,2); both methods bit-equal to the
-unsharded frames of phases 4, 8, 15 and 16, every rank's launches
-asserted) and once more through one NCCL rank.  Phase 20 runs `run
+288x384, then config 3 on (1,2,2)), each case with its shard's steps
+replayed from CUDA graphs (the default) and then eagerly
+(`utils.call_stage`): both methods bit-equal to the unsharded frames of
+phases 4, 8, 15 and 16, every rank's launches asserted in every frame,
+per rank the frame ms, peak memory, step graphs, pool and slots, and the
+config-3 shard's epipolar scan eager against one replayed step; and once
+more through one NCCL rank, replayed and eager.  Phase 20 runs `run
 --method both` and `run --method cross` over 8 seeded 375x450 scenes,
 decoding ahead (io/loader.py): every file byte-equal to those of `run`'s
 own per-pair work on the pairs decoded inline and the launches asserted,
@@ -1681,27 +1685,47 @@ def sharded_launches(method, cfg, kernels):
 def check_sharded(ranks, cases, refs, kernels, smi):
     """Each case's gathered maps against its unsharded frames (refs[pair]
     [method]: field -> (B, H, W[, 3]) host tensor), bit for bit, and every
-    rank's launches; prints per-rank frame ms and peak memory.  Returns
-    the ranks' records per case."""
+    rank's launches in every frame, the first one included; prints per
+    rank the frame ms, the peak memory allocated and reserved per frame
+    and the step graphs (graphs, warm-up and capture seconds, pool and
+    slot GB).  Returns the ranks' records per case."""
     import torch
 
     from stereo_matchin_tpu_torch import StereoConfig
 
+    total = torch.cuda.get_device_properties(0).total_memory
     out = []
     for k, case in enumerate(cases):
         recs = [r[k] for r in ranks]
         ms = "; ".join(", ".join(f"{x:.1f}" for x in r["ms"]) for r in recs)
         peak = ", ".join(f"{r['peak'] / 1e9:.3f}" for r in recs)
+        reserved = "; ".join(", ".join(f"{x / 1e9:.3f}" for x in r["reserved"])
+                             for r in recs)
+        sums = [sum(r["reserved"][f] for r in recs) / 1e9
+                for f in range(len(recs[0]["reserved"]))]
         tag = (f"{case.method} mesh {case.mesh} {case.pair}"
-               + (f" halo {case.halo_mode}" if case.method == "asw" else ""))
-        print(f"  {tag}: frame ms per rank (cold, warm) {ms}; peak GB per "
-              f"rank {peak}; {smi}")
+               + (f" halo {case.halo_mode}" if case.method == "asw" else "")
+               + f" {case.run}")
+        print(f"  {tag}: frame ms per rank (cold, warm) {ms}; peak GB "
+              f"allocated per rank {peak}; reserved GB per rank and frame "
+              f"{reserved} (sum over ranks {', '.join(f'{x:.3f}' for x in sums)}"
+              f" of the card's {total / 1e9:.3f}); {smi}")
+        if case.run == "replay":
+            st = "; ".join(
+                f"{r['stages']['graphs']} graphs, {r['stages']['warmup_s']:.3f}"
+                f" + {r['stages']['capture_s']:.3f} s, pool "
+                f"{r['stages']['pool_bytes'] / 1e9:.3f} GB, slots "
+                f"{r['stages']['input_bytes'] / 1e9:.3f} GB" for r in recs)
+            print(f"  {tag}: step graphs per rank (warm-ups + captures): {st}")
+            if not all(r["stages"]["graphs"] > 0 for r in recs):
+                raise AssertionError(f"{tag}: a rank captured no step")
         want = sharded_launches(case.method, StereoConfig(**case.cfg),
                                 kernels)
         for r in recs:
-            if r["launches"] != want:
-                raise AssertionError(f"{tag}: rank {r['coord']} launched "
-                                     f"{r['launches']}, want {want}")
+            for f, got in enumerate(r["frame_launches"]):
+                if got != want:
+                    raise AssertionError(f"{tag}: rank {r['coord']} launched "
+                                         f"{got} in frame {f}, want {want}")
         out.append(recs)
         if case.halo_mode == "local":
             continue
@@ -1713,18 +1737,23 @@ def check_sharded(ranks, cases, refs, kernels, smi):
                 raise AssertionError(f"{tag}: {f} differs from the unsharded "
                                      f"frame")
         print(f"  {tag}: {', '.join(SHARDED_MAPS[case.method])} bit-equal to "
-              f"the unsharded frames; launches per rank as expected")
+              f"the unsharded frames; launches per rank and frame as "
+              f"expected")
     return out
 
 
 def epipolar_scan_time(c3_kw, smi):
     """The plain target scan of one config-3 (1, 2, 2) shard (140 planes of
-    994 x 2880, parallel/wta_sharded.py epipolar_partial, 279 steps), alone
-    on the card in this process: a sharded ASW frame runs it k + 1 = 7
-    times a rank."""
+    994 x 2880, parallel/wta_sharded.py epipolar_partial, 279 steps, with
+    the penalty), alone on the card in this process, eagerly and as the
+    sharded path's "wta_epipolar" step replayed from a CUDA graph, in turns
+    (eager, replayed, replayed, eager), bit-equal: a sharded ASW frame runs
+    it k + 1 = 7 times a rank.  Returns the ms of each."""
     import torch
 
-    from stereo_matchin_tpu_torch.parallel.wta_sharded import epipolar_partial
+    from stereo_matchin_tpu_torch.parallel.wta_sharded import (
+        epipolar_partial, epipolar_segment, stack_two_min)
+    from stereo_matchin_tpu_torch.utils import clear_caches, replay_stage
 
     H, W = CONFIG3_HW
     D = c3_kw["d_max"] + 1
@@ -1734,20 +1763,63 @@ def epipolar_scan_time(c3_kw, smi):
                        dtype=torch.int32)
     sc = torch.rand((H // 2, W), generator=gen, device="cuda")
     ct = torch.rand((H // 2, W), generator=gen, device="cuda") * D
-    scan = lambda: epipolar_partial(cost, d1, D // 2, D // 2, D, sc, ct)
-    scan()
-    _, ms = timed(scan)
+    scan = lambda: stack_two_min(
+        epipolar_partial(cost, d1, D // 2, D // 2, D, sc, ct))
+    step = lambda: replay_stage("wta_epipolar", epipolar_segment, cost, d1,
+                                D // 2, D // 2, D, sc, ct, None, 1e5)
+    if not torch.equal(scan(), step()):
+        raise AssertionError("the replayed epipolar step differs from the "
+                             "eager scan")
+    got = {"eager_ms": [], "replayed_ms": []}
+    for key in ("eager_ms", "replayed_ms", "replayed_ms", "eager_ms"):
+        got[key].append(round(timed(scan if key == "eager_ms" else step)[1],
+                              3))
+    clear_caches()
     print(f"  config-3 shard's plain epipolar scan ({D // 2} planes of "
-          f"{H // 2}x{W}, {D - 1} steps, with the penalty): {ms:.1f} ms "
-          f"alone on the card, 7 a frame; {smi}")
+          f"{H // 2}x{W}, {D - 1} steps, with the penalty), alone on the "
+          f"card, 7 a frame: eager {got['eager_ms']} ms, one replayed step "
+          f"{got['replayed_ms']} ms (bit-equal); {smi}")
+    return got
+
+
+def sharded_summary(cases, recs):
+    """Per config-3 case and runner, in the order they ran: per rank the
+    frame ms (cold, warm), the peak reserved GB per frame and their sum
+    over the ranks, and for the replayed steps the graphs, warm-up and
+    capture seconds, pool and slot GB."""
+    out = {}
+    for case, rr in zip(cases, recs):
+        if not case.pair.startswith("config3"):
+            continue
+        key = (f"{case.method}_{case.halo_mode}_{case.run}"
+               if case.method == "asw" else f"cross_{case.run}")
+        key += f"_{sum(k.startswith(key) for k in out) + 1}"
+        out[key] = {
+            "ms": [[round(x, 1) for x in r["ms"]] for r in rr],
+            "reserved_gb": [[round(x / 1e9, 3) for x in r["reserved"]]
+                            for r in rr],
+            "reserved_sum_gb": [round(sum(r["reserved"][f] for r in rr) / 1e9,
+                                      3) for f in range(len(rr[0]["ms"]))]}
+        if case.run == "replay":
+            out[key]["steps"] = [
+                {"graphs": r["stages"]["graphs"],
+                 "warmup_s": round(r["stages"]["warmup_s"], 3),
+                 "capture_s": round(r["stages"]["capture_s"], 3),
+                 "pool_gb": round(r["stages"]["pool_bytes"] / 1e9, 3),
+                 "slots_gb": round(r["stages"]["input_bytes"] / 1e9, 3)}
+                for r in rr]
+    return out
 
 
 def sharded_phase(cfg, kernels, left, right, refs, c3_refs, smi):
     """The sharded pipelines (parallel/) in one spawn of 4 gloo ranks on the
-    one card, then one NCCL rank.  refs: the unsharded 288x384 frames of
-    phases 4 and 8 (method -> field -> tensor); c3_refs: phases 15 and
-    16's whole config-3 frames (the same, on the host).  Returns rank 0's
-    launches in the config-3 (1, 2, 2) frames, per method."""
+    one card, then one NCCL rank: every case with its steps replayed from
+    CUDA graphs (the default runner) and then eagerly (utils.call_stage),
+    each case's graphs cleared after its frames.  refs: the unsharded
+    288x384 frames of phases 4 and 8 (method -> field -> tensor); c3_refs:
+    phases 15 and 16's whole config-3 frames (the same, on the host).
+    Returns rank 0's launches in the replayed config-3 (1, 2, 2) frames,
+    per method."""
     import dataclasses
 
     import torch
@@ -1755,6 +1827,7 @@ def sharded_phase(cfg, kernels, left, right, refs, c3_refs, smi):
     from stereo_matchin_tpu_torch.models import asw, cross_based
     from stereo_matchin_tpu_torch.parallel.distributed import spawn
     from stereo_matchin_tpu_torch.parallel.dryrun import Case, sharded_maps
+    from stereo_matchin_tpu_torch.utils import clear_caches
 
     H, W = left.shape[:2]
     sl, sr = scene_pair(5, H, W, cfg.d_max)
@@ -1778,37 +1851,48 @@ def sharded_phase(cfg, kernels, left, right, refs, c3_refs, smi):
     cases = []
     for mesh in SHARDED_MESHES:
         pair = "batch" if mesh[0] > 1 else "fixture"
-        cases += [Case("asw", mesh, ref_kw, pair),
-                  Case("cross", mesh, ref_kw, pair)]
-    cases += [Case("asw", (1, 2, 2), c3_kw, "config3_asw"),
-              Case("asw", (1, 2, 2), c3_kw, "config3_asw", "local"),
-              Case("cross", (1, 2, 2), c3_kw, "config3_cross")]
+        for run in ("replay", "eager"):
+            cases += [Case("asw", mesh, ref_kw, pair, run=run),
+                      Case("cross", mesh, ref_kw, pair, run=run)]
+    for run in ("replay", "eager", "eager", "replay"):       # in turns
+        cases += [Case("asw", (1, 2, 2), c3_kw, "config3_asw", run=run),
+                  Case("cross", (1, 2, 2), c3_kw, "config3_cross", run=run)]
+    cases += [Case("asw", (1, 2, 2), c3_kw, "config3_asw", "local", run)
+              for run in ("replay", "eager")]
     print("  4 gloo ranks share this one card: collectives are staged "
           "through host memory, and the times are of ranks taking turns on "
           "one card, not multi-card scaling")
     del scene
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    clear_caches()                  # this process's graphs: room for 4 ranks
     t0 = time.perf_counter()
     ranks = spawn(sharded_maps, 4, "gloo", (cases, pairs, "cuda", 2), 900)
     print(f"  spawn of 4 ranks: {time.perf_counter() - t0:.1f} s in all")
     recs = check_sharded(ranks, cases, refs, kernels, smi)
-    for e, loc in zip(recs[-3], recs[-2]):
-        ex, lo = e["ms"][-1], loc["ms"][-1]
-        print(f"  config 3 ASW (1, 2, 2) rank {e['coord']}, warm: exchange "
-              f"{ex:.1f} ms, local halos {lo:.1f} ms (the row axis's "
-              f"share: {ex - lo:.1f} ms); {smi}")
-    epipolar_scan_time(c3_kw, smi)
+    c3 = {(c.method, c.halo_mode, c.run): r for c, r in zip(cases, recs)
+          if c.pair.startswith("config3")}       # the last turn of each
+    for run in ("replay", "eager"):
+        for e, loc in zip(c3[("asw", "exchange", run)],
+                          c3[("asw", "local", run)]):
+            ex, lo = e["ms"][-1], loc["ms"][-1]
+            print(f"  config 3 ASW (1, 2, 2) {run} rank {e['coord']}, warm: "
+                  f"exchange {ex:.1f} ms, local halos {lo:.1f} ms (the row "
+                  f"axis's share: {ex - lo:.1f} ms); {smi}")
+    report = {"config3": sharded_summary(cases, recs),
+              "epipolar_scan": epipolar_scan_time(c3_kw, smi)}
 
     t0 = time.perf_counter()
-    nccl = [Case("asw", (1, 1, 1), ref_kw, "fixture"),
-            Case("cross", (1, 1, 1), ref_kw, "fixture")]
+    nccl = [Case(m, (1, 1, 1), ref_kw, "fixture", run=run)
+            for run in ("replay", "eager") for m in ("asw", "cross")]
     ranks = spawn(sharded_maps, 1, "nccl",
                   (nccl, {"fixture": pairs["fixture"]}, "cuda", 2), 300)
     print(f"  NCCL at world size 1 (the one card; NCCL between cards is not "
-          f"run here): {time.perf_counter() - t0:.1f} s")
+          f"run here), steps replayed and eager: "
+          f"{time.perf_counter() - t0:.1f} s")
     check_sharded(ranks, nccl, refs, kernels, smi)
-    return {"asw": recs[-3][0]["launches"], "cross": recs[-1][0]["launches"]}
+    print(json.dumps({"sharded_graphs": report, "card": smi}))
+    return {m: c3[(m, "exchange", "replay")][0]["launches"]
+            for m in ("asw", "cross")}
 
 
 # Phase 20: `run` over seeded synthetic scenes at the reference's 375x450
@@ -3274,8 +3358,9 @@ def main() -> int:
 
     phase("19. sharded pipelines (parallel/): 4 gloo ranks on this card at "
           "REFERENCE_CONFIG on meshes (1,2,2), (1,4,1), (1,1,4), (2,2,1) and "
-          "at config 3 on (1,2,2), both methods bit-equal to the unsharded "
-          "frames; one NCCL rank")
+          "at config 3 on (1,2,2), the steps replayed from CUDA graphs and "
+          "eager in turns, both methods bit-equal to the unsharded frames; "
+          "one NCCL rank")
     sharded = sharded_phase(
         cfg, kernels, left, right,
         {"asw": {f: getattr(res_k, f) for f in SHARDED_MAPS["asw"]},

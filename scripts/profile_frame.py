@@ -4,6 +4,7 @@
     python3 scripts/profile_frame.py [--method asw|cross] [--config3] [--stages]
     python3 scripts/profile_frame.py [--method asw|cross] [--config3]
         --bands N [--route wavefront|halo] [--eager]
+    python3 scripts/profile_frame.py [--method asw|cross] --sharded [--eager]
 
 Runs the ASW pipeline (`--method asw`, the default) or the cross-based
 pipeline (`--method cross`) of the PyTorch port through the CUDA kernels
@@ -24,9 +25,16 @@ default, or halo), its band steps replayed from CUDA graphs, or run
 eagerly with --eager (utils.call_stage); it also prints per band its
 device ms, kernel launches, host ms to dispatch it and its busy share
 (device ms over the span from its first kernel's start to its last
-kernel's end), beside one unprofiled frame's host ms.  Needs an NVIDIA
-GPU; prints the card's nvidia-smi name and power limit beside the
-numbers.
+kernel's end), beside one unprofiled frame's host ms.  With --sharded
+the frame is the sharded pipeline at config 3 on a (1, 2, 2) mesh of 4
+gloo ranks sharing the card (parallel/, the pairs of chip_smoke.py phase
+19), its steps replayed from CUDA graphs or run eagerly with --eager; each
+rank runs two frames, then rank 0 profiles its third while the others run
+theirs, and it prints rank 0's numbers as above and its device time by
+step (the steps' names, parallel/asw_sharded.py and cross_sharded.py),
+the device work outside every step being the collectives' copies.  Needs
+an NVIDIA GPU; prints the card's nvidia-smi name and power limit beside
+the numbers.
 """
 
 from __future__ import annotations
@@ -56,16 +64,21 @@ def main() -> int:
     ap.add_argument("--route", choices=("wavefront", "halo"),
                     default="wavefront")
     ap.add_argument("--eager", action="store_true",
-                    help="with --bands: run the band steps eagerly")
+                    help="with --bands or --sharded: run the steps eagerly")
+    ap.add_argument("--sharded", action="store_true",
+                    help="rank 0 of the sharded pipeline at config 3 on "
+                         "(1, 2, 2), 4 gloo ranks")
     args = ap.parse_args()
-    if args.bands and args.stages:
-        ap.error("--bands and --stages are exclusive")
+    if sum((bool(args.bands), args.stages, args.sharded)) > 1:
+        ap.error("--bands, --stages and --sharded are exclusive")
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: needs an NVIDIA GPU")
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    if args.sharded:
+        return sharded(args.method, args.eager, smi)
 
     from chip_smoke import CONFIG3_HW, random_pair
     from stereo_matchin_tpu_torch import REFERENCE_CONFIG
@@ -150,6 +163,95 @@ def main() -> int:
     if args.bands:
         bands.report(trace_events(prof))
     return 0
+
+
+def sharded(method: str, eager: bool, smi: str) -> int:
+    """--sharded: spawn the 4 ranks and print rank 0's profile."""
+    import dataclasses
+
+    from chip_smoke import CONFIG3_HW, config3_batch, scene_batch
+    from stereo_matchin_tpu_torch import REFERENCE_CONFIG
+    from stereo_matchin_tpu_torch.kernels import _build
+    from stereo_matchin_tpu_torch.parallel.distributed import spawn
+
+    _build.build()                  # once, before the ranks load it
+    cfg = REFERENCE_CONFIG.replace(d_max=279, median_dispatch_quirk=False)
+    pair = ((config3_batch, (3,)) if method == "asw"
+            else (scene_batch, (4, *CONFIG3_HW, 279)))
+    out = spawn(sharded_rank, 4, "gloo",
+                (method, eager, pair, dataclasses.asdict(cfg)), 900)
+    print(f"{out[0]}; {smi}")
+    return 0
+
+
+def sharded_rank(rank, method, eager, pair, cfg_kw) -> str:
+    """Rank function of --sharded: two frames, then a third one, profiled on
+    rank 0.  Returns rank 0's report (the other ranks return "")."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from stereo_matchin_tpu_torch import kernels
+    from stereo_matchin_tpu_torch.config import MeshConfig, StereoConfig
+    from stereo_matchin_tpu_torch.parallel import (make_asw_sharded,
+                                                   make_cross_sharded)
+    from stereo_matchin_tpu_torch.parallel.dryrun import _pair
+    from stereo_matchin_tpu_torch.parallel.mesh import build_mesh, rank_device
+    from stereo_matchin_tpu_torch.utils import call_stage, replay_stage
+
+    torch.set_num_threads(1)
+    mesh = build_mesh(MeshConfig(1, 2, 2), "cuda")
+    dev = rank_device("cuda")
+    left, right = _pair(pair, dev)
+    inner, steps = call_stage if eager else replay_stage, set()
+
+    def run(name, fn, *args):
+        steps.add(name)
+        with record_function(name):
+            return inner(name, fn, *args)
+
+    cfg = StereoConfig(**cfg_kw)
+    f = (make_asw_sharded(cfg, mesh, run=run) if method == "asw"
+         else make_cross_sharded(cfg, mesh, run=run))
+
+    def frame():
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        f(left, right)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    cold, warm = frame(), frame()
+    if rank != 0:
+        frame()
+        return ""
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        host_ms = frame()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in steps]
+    rows.sort(key=lambda e: e.device_time_total, reverse=True)
+    device_ms = sum(e.device_time_total for e in rows) / 1e3
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        print(f"sharded {method} rank 0 of (1, 2, 2), 4 gloo ranks on one "
+              f"card, config 3, steps {'eager' if eager else 'replayed'}: "
+              f"frames {cold:.1f} (cold), {warm:.1f} ms; profiled "
+              f"{host_ms:.1f} ms host, {device_ms:.1f} ms device "
+              f"({device_ms / host_ms * 100:.1f}% busy) in "
+              f"{sum(e.count for e in rows)} device launches; kernels "
+              f"{dict((k, v) for k, v in kernels.LAUNCHES.items() if v)}")
+        for e in rows[:15]:
+            print(f"  {e.device_time_total / 1e3:10.3f} ms  {e.count:6d} x  "
+                  f"{e.key[:90]}")
+        print_stages(prof, steps, device_ms)
+    return text.getvalue().rstrip()
 
 
 class BandRanges:

@@ -15,14 +15,19 @@ MULTICHIP_r05.json tail.
 
 `sharded_maps` is the rank function the dry run, the tests and
 chip_smoke.py spawn: it runs a list of `Case`s (method, mesh, config,
-halo mode) and returns each one's per-rank launches, time and peak memory,
-and on rank 0 the gathered maps; `halo_tiles` returns each rank's strip
-of an array after the halo exchange.
+halo mode, stage runner by name) and returns each one's per-rank
+launches, time, peak memory and step graphs, and on rank 0 the gathered
+maps; `halo_tiles` returns each rank's strip of an array after the halo
+exchange.  The runner "replay" replays each step of a shard from a CUDA
+graph on the card (utils.replay_stage), "eager" calls it
+(utils.call_stage), and "record" calls it through a `StepLog`, which logs
+each step's name and stage key while the collectives raise inside a step.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import NamedTuple
 
@@ -32,6 +37,8 @@ import torch.distributed as dist
 
 from .. import kernels, ops
 from ..config import MeshConfig, StereoConfig
+from ..utils import call_stage, clear_caches, graphs, replay_stage
+from . import comm, halo
 from .asw_sharded import make_asw_sharded
 from .cross_sharded import make_cross_sharded
 from .distributed import spawn
@@ -48,6 +55,51 @@ class Case(NamedTuple):
     cfg: dict                    # StereoConfig keywords
     pair: str                    # key of the pairs passed to sharded_maps
     halo_mode: str = "exchange"  # ASW only (make_asw_sharded)
+    run: str = "replay"          # the steps' runner: "replay", "eager", "record"
+
+
+class StepLog:
+    """A stage runner that calls each step and logs its name and stage key
+    (utils/graphs.py stage_key, which refuses an argument that nests a
+    tensor); `running` names the step it is in (guard_collectives)."""
+
+    running = None
+
+    def __init__(self):
+        self.steps = []
+
+    def __call__(self, name, fn, *args):
+        self.steps.append((name, graphs.stage_key(name, fn, args)))
+        StepLog.running = name
+        try:
+            return fn(*args)
+        finally:
+            StepLog.running = None
+
+
+def _outside_steps(f):
+    @functools.wraps(f)
+    def guarded(*args, **kwargs):
+        if StepLog.running is not None:
+            raise RuntimeError(f"{f.__name__} called inside the step "
+                               f"{StepLog.running}")
+        return f(*args, **kwargs)
+
+    guarded.outside_steps = True
+    return guarded
+
+
+def guard_collectives() -> None:
+    """Make comm.all_gather and comm.exchange (and halo's name for it)
+    raise while a StepLog runs a step, in this process."""
+    for mod, name in ((comm, "all_gather"), (comm, "exchange"),
+                      (halo, "exchange")):
+        f = getattr(mod, name)
+        if not getattr(f, "outside_steps", False):
+            setattr(mod, name, _outside_steps(f))
+
+
+RUNNERS = {"replay": replay_stage, "eager": call_stage}
 
 
 def _pair(spec, dev):
@@ -68,40 +120,70 @@ def _sync(dev):
 def sharded_maps(rank: int, cases: list, pairs: dict,
                  device_type: str = "cuda", runs: int = 1) -> list:
     """Rank function: every case on a mesh of all ranks, `runs` frames
-    each.  Per case, a dict with this rank's `launches` (kernels.LAUNCHES
-    over one frame), `ms` (each frame, barrier to barrier), `peak` (max
-    device memory allocated in a frame, bytes; 0 on the CPU) and `coord`,
-    and on rank 0 `maps`: the gathered full maps of the last frame (field
-    -> numpy array)."""
+    each, then the stage graphs cleared (utils.clear_caches).  Per case, a
+    dict with this rank's `launches` (kernels.LAUNCHES over the last frame;
+    `frame_launches` over each), `ms` (each frame, barrier to barrier),
+    `peak` (max device memory allocated in the last frame, bytes),
+    `reserved` (max reserved in each frame; 0s on the CPU), `stages`
+    (utils/graphs.py STAGES.stats() after the frames: the step graphs,
+    their warm-ups' and captures' seconds, pool and slot bytes), `coord`,
+    for the "record" runner `steps` (each frame's (name, stage key) list)
+    and `guarded` (a collective inside a step raised), and on rank 0
+    `maps`: the gathered full maps of the last frame (field -> numpy
+    array)."""
     torch.set_num_threads(1)
-    out = []
+    out, meshes = [], {}
+    dev = rank_device(device_type)
     for case in cases:
-        mesh = build_mesh(MeshConfig(*case.mesh), device_type)
-        dev = rank_device(device_type)
+        if case.mesh not in meshes:
+            meshes[case.mesh] = build_mesh(MeshConfig(*case.mesh),
+                                           device_type)
+        mesh = meshes[case.mesh]
         cfg = StereoConfig(**case.cfg)
         left, right = _pair(pairs[case.pair], dev)
-        f = (make_asw_sharded(cfg, mesh, case.halo_mode)
-             if case.method == "asw" else make_cross_sharded(cfg, mesh))
-        ms = []
+        log = None
+        if case.run == "record":
+            guard_collectives()
+            run = log = StepLog()
+        else:
+            run = RUNNERS[case.run]
+        f = (make_asw_sharded(cfg, mesh, case.halo_mode, run)
+             if case.method == "asw" else make_cross_sharded(cfg, mesh, run))
+        rec = {"ms": [], "frame_launches": [], "reserved": [], "steps": []}
         for _ in range(runs):
             res = None
             _sync(dev)
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
             kernels.reset_launches()
+            if log is not None:
+                log.steps = []
             t0 = time.perf_counter()
             res = f(left, right)
             _sync(dev)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        rec = {"launches": dict(kernels.LAUNCHES), "ms": ms,
-               "peak": (torch.cuda.max_memory_allocated(dev)
-                        if dev.type == "cuda" else 0),
-               "coord": tuple(mesh.get_coordinate())}
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["frame_launches"].append(dict(kernels.LAUNCHES))
+            rec["reserved"].append(torch.cuda.max_memory_reserved(dev)
+                                   if dev.type == "cuda" else 0)
+            if log is not None:
+                rec["steps"].append(log.steps)
+        rec.update(launches=rec["frame_launches"][-1],
+                   peak=(torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else 0),
+                   stages=graphs.STAGES.stats(),
+                   coord=tuple(mesh.get_coordinate()))
+        if log is not None:
+            try:
+                StepLog()("probe", comm.all_gather, left, None)
+                rec["guarded"] = False
+            except RuntimeError:
+                rec["guarded"] = True
         full = gather_blocks(res, mesh)
         if rank == 0:
             rec["maps"] = {k: v.cpu().numpy()
                            for k, v in full._asdict().items()}
         del res, full, left, right
+        clear_caches()
         out.append(rec)
     return out
 

@@ -17,6 +17,17 @@ b(i) is monotone, so each shard's visits form one interval of i: each
 shard replays its interval with a masked sequential loop (plain, as in
 the JAX package) and the segments merge in descending shard order
 (= ascending i).
+
+Each compute segment between two all-gathers runs as steps of a stage
+runner `run(name, fn, *args)`: utils.replay_stage by default, which on
+CUDA tensors replays each step from a CUDA graph (the JAX package jits
+the whole shard program; the collectives stay eager here, between the
+steps), or utils.call_stage, which calls it.  A scan is a local step (the
+shard's summary, stacked), the all-gather, and a merge step that takes
+the gathered (n, 3, H, W) tensor whole: the reference scan "wta_local"
+and "wta_merge_reference", the target scan "wta_epipolar" (its D - 1
+steps one graph) and "wta_merge_target", and the WTA's "wta_result".  A
+penalty's `penalty * den` is formed inside the steps.
 """
 
 from __future__ import annotations
@@ -27,7 +38,8 @@ import torch
 
 from ..ops.wta import WTAResult
 from ..ops.wta_fast import _two_min
-from .comm import all_gather
+from ..utils.graphs import replay_stage
+from . import comm
 
 
 class TwoMin(NamedTuple):
@@ -46,24 +58,48 @@ def two_min_combine(a: TwoMin, b: TwoMin) -> TwoMin:
     return TwoMin(c1, c2, d)
 
 
-def gather_two_min(s: TwoMin, group) -> list[TwoMin]:
-    """Every disp shard's summary, in shard order: one all-gather of
-    (c1, c2, d) with d's int32 bits carried in a float32 plane."""
-    g = all_gather(torch.stack([s.c1, s.c2, s.d.view(torch.float32)]), group)
+def stack_two_min(s: TwoMin) -> torch.Tensor:
+    """(3, H, W): c1, c2 and d's int32 bits in a float32 plane, as one
+    all-gather sends a summary."""
+    return torch.stack([s.c1, s.c2, s.d.view(torch.float32)])
+
+
+def unstack_two_min(g: torch.Tensor) -> list:
+    """The shards' summaries, in shard order, from their all-gathered
+    (n, 3, H, W) stack."""
     return [TwoMin(x[0], x[1], x[2].contiguous().view(torch.int32))
             for x in g]
 
 
+def _scaled(pen_scale, penalty):
+    return pen_scale if penalty is None else penalty * pen_scale
+
+
+def local_two_min(cost_local, pen_scale, pen_center, penalty, d0: int,
+                  big: float, kernels: str) -> torch.Tensor:
+    """The step before the reference all-gather: this shard's two-min
+    (K3 at d0 on a CUDA tensor, d GLOBAL), stacked.  The penalty is
+    penalty * pen_scale * |pen_center - d| (penalty None: pen_scale
+    alone)."""
+    c1, c2, dl = _two_min(cost_local, _scaled(pen_scale, penalty),
+                          pen_center, big, kernels, d0)
+    return stack_two_min(TwoMin(c1, c2, dl + d0))
+
+
 def reference_scan_sharded(cost_local, d0: int, group, pen_scale=None,
                            pen_center=None, big: float = 1e5,
-                           kernels: str = "auto") -> TwoMin:
+                           kernels: str = "auto", penalty=None,
+                           run=replay_stage) -> TwoMin:
     """Global two-min over a disp-sharded volume.
 
     cost_local: (Dl, H, W), plane k holding global disparity d0 + k; the
-    optional penalty is pen_scale * |pen_center - d| (K3's).  Returns the
-    global TwoMin, d the GLOBAL disparity."""
-    c1, c2, dl = _two_min(cost_local, pen_scale, pen_center, big, kernels, d0)
-    return merge_reference(gather_two_min(TwoMin(c1, c2, dl + d0), group), big)
+    optional penalty is pen_scale * |pen_center - d| (K3's), times
+    `penalty` where given.  Returns the global TwoMin, d the GLOBAL
+    disparity."""
+    s = run("wta_local", local_two_min, cost_local, pen_scale, pen_center,
+            penalty, d0, big, kernels)
+    return run("wta_merge_reference", merge_reference_gathered,
+               comm.all_gather(s, group), big)
 
 
 def merge_reference(parts: list, big: float = 1e5) -> TwoMin:
@@ -74,6 +110,11 @@ def merge_reference(parts: list, big: float = 1e5) -> TwoMin:
         state = two_min_combine(state, part)
     # No plane anywhere beat `big`: the sequential tracker leaves d = 0.
     return state._replace(d=torch.where(state.c1 < big, state.d, 0))
+
+
+def merge_reference_gathered(g, big: float) -> TwoMin:
+    """merge_reference over the all-gathered (n, 3, H, W) summaries."""
+    return merge_reference(unstack_two_min(g), big)
 
 
 def epipolar_partial(cost_local, d1, d0: int, n_local: int, total_disp: int,
@@ -109,15 +150,27 @@ def epipolar_partial(cost_local, d1, d0: int, n_local: int, total_disp: int,
     return TwoMin(c1, c2, best_b)
 
 
+def epipolar_segment(cost_local, d1, d0: int, n_local: int,
+                     total_disp: int, pen_scale, pen_center, penalty,
+                     big: float) -> torch.Tensor:
+    """The step before the target all-gather: epipolar_partial (the
+    penalty as local_two_min's), stacked."""
+    return stack_two_min(epipolar_partial(
+        cost_local, d1, d0, n_local, total_disp, _scaled(pen_scale, penalty),
+        pen_center, big))
+
+
 def target_scan_sharded(cost_local, d1, d0: int, n_local: int,
                         total_disp: int, group, penalty_scale=None,
-                        penalty_center=None, big: float = 1e5):
+                        penalty_center=None, big: float = 1e5, penalty=None,
+                        run=replay_stage):
     """Merge the per-shard epipolar segments in ascending-i order, i.e.
     DESCENDING shard order, seeded with the sequential start (c = big,
     b = d1).  Returns (d_target int32, conf_target) with (c2 - c1) / c2."""
-    seg = epipolar_partial(cost_local, d1, d0, n_local, total_disp,
-                           penalty_scale, penalty_center, big)
-    return merge_target(gather_two_min(seg, group), d1, big)
+    seg = run("wta_epipolar", epipolar_segment, cost_local, d1, d0, n_local,
+              total_disp, penalty_scale, penalty_center, penalty, big)
+    return run("wta_merge_target", merge_target_gathered,
+               comm.all_gather(seg, group), d1, big)
 
 
 def merge_target(parts: list, d1, big: float = 1e5):
@@ -131,31 +184,41 @@ def merge_target(parts: list, d1, big: float = 1e5):
     return state.d, (state.c2 - state.c1) / state.c2
 
 
+def merge_target_gathered(g, d1, big: float):
+    """merge_target over the all-gathered (n, 3, H, W) segments."""
+    return merge_target(unstack_two_min(g), d1, big)
+
+
+def wta_result(c1, c2, d_ref, d_target, conf_target) -> WTAResult:
+    """The WTA's maps from the two merged scans: the "wta_result" step."""
+    dt = c1.dtype
+    return WTAResult(d_ref.to(dt), (c2 - c1) / c2, d_target.to(dt),
+                     conf_target)
+
+
 def wta_sharded(cost_local, d0: int, n_local: int, total_disp: int, group,
-                big: float = 1e5, kernels: str = "auto") -> WTAResult:
+                big: float = 1e5, kernels: str = "auto",
+                run=replay_stage) -> WTAResult:
     """asw_WTA over a disp-sharded volume; every disp shard gets the same
     maps."""
     ref = reference_scan_sharded(cost_local, d0, group, big=big,
-                                 kernels=kernels)
-    conf_ref = (ref.c2 - ref.c1) / ref.c2
+                                 kernels=kernels, run=run)
     d_t, conf_t = target_scan_sharded(cost_local, ref.d, d0, n_local,
-                                      total_disp, group, big=big)
-    dt = cost_local.dtype
-    return WTAResult(ref.d.to(dt), conf_ref, d_t.to(dt), conf_t)
+                                      total_disp, group, big=big, run=run)
+    return run("wta_result", wta_result, ref.c1, ref.c2, ref.d, d_t, conf_t)
 
 
 def wta_refined_sharded(cost_local, d0: int, n_local: int, total_disp: int,
                         group, ref_value, ref_denom, ref_value_t, ref_denom_t,
                         penalty: float, big: float = 1e5,
-                        kernels: str = "auto") -> WTAResult:
+                        kernels: str = "auto",
+                        run=replay_stage) -> WTAResult:
     """asw_WTA_REF over a disp-sharded volume: the penalty
     (penalty * den) * |ref - d| on global d."""
-    ref = reference_scan_sharded(cost_local, d0, group, penalty * ref_denom,
-                                 ref_value, big, kernels)
-    conf_ref = (ref.c2 - ref.c1) / ref.c2
+    ref = reference_scan_sharded(cost_local, d0, group, ref_denom, ref_value,
+                                 big, kernels, penalty, run)
     d_t, conf_t = target_scan_sharded(
         cost_local, ref.d, d0, n_local, total_disp, group,
-        penalty_scale=penalty * ref_denom_t, penalty_center=ref_value_t,
-        big=big)
-    dt = cost_local.dtype
-    return WTAResult(ref.d.to(dt), conf_ref, d_t.to(dt), conf_t)
+        penalty_scale=ref_denom_t, penalty_center=ref_value_t, big=big,
+        penalty=penalty, run=run)
+    return run("wta_result", wta_result, ref.c1, ref.c2, ref.d, d_t, conf_t)

@@ -106,10 +106,31 @@ band-step jits.  Their memory rule:
     frame whose bands outgrow the card fails on its first call, instead
     of capturing every band again on every frame.
 
+The sharded pipelines (parallel/asw_sharded.py, parallel/cross_sharded.py,
+parallel/wta_sharded.py) run each compute segment between two collectives
+as one step through the same runner, keyed by the shard's offsets, while
+the collectives stay eager between the steps (under gloo they move
+through host memory, which a capture cannot hold): the port's counterpart
+of the JAX package's jit over shard_map.  A frame holds its graphs, as a
+banded frame does.  Their weights, denominators and volume cross many
+steps, and a rank shares the card with the other ranks, so a copy of each
+in a clone and another in a slot would not fit (PERF.md, PR 16).  So a
+step marked `resident` keeps its outputs where its graph wrote them:
+
+  * on the card each call returns the graph's own output tensors, not
+    clones; the step's next replay overwrites them, so a caller uses them
+    only before it calls that step again (a sharded frame's weights, its
+    aggregation rounds' volume), and never returns them;
+  * they stay allocated in the shared pool while the graph lives, and a
+    later step that takes one of them reads it where it is: no slot and no
+    copy, its address part of that step's key (stable, since the resident
+    graph writes the same memory on every replay).
+
 A stage's arguments may not nest a tensor in a tuple, list or dict: its
 key would hold the tensor's identity and its graph would read the tensor
 from where it was captured (`stage_key` refuses it).  Its result may nest
-tensors in tuples, NamedTuples and dicts; each is cloned.
+tensors in tuples, NamedTuples and dicts; each is cloned, unless the
+step is resident.
 """
 
 from __future__ import annotations
@@ -215,10 +236,12 @@ class CapturedFrame:
 
     def load(self, tensors) -> None:
         """Wait for the last call's clones, then copy the call's tensors
-        into the static inputs."""
+        into the static inputs; an input the graph reads in place (a
+        resident step's output) is not copied."""
         torch.cuda.current_stream().wait_event(self.done)
         for buf, t in zip(self.inputs, tensors):
-            buf.copy_(t)
+            if buf.data_ptr() != t.data_ptr():
+                buf.copy_(t)
 
     def replay(self) -> None:
         self.graph.replay()
@@ -435,6 +458,20 @@ class _Bound:
         return self.fn(*args)
 
 
+def resident(fn):
+    """Mark fn as a resident step (the module's docstring): on the card its
+    calls return its graph's own outputs, which later steps read in place.
+    Returns fn."""
+    fn.stage_resident = True
+    return fn
+
+
+def is_resident(fn) -> bool:
+    while isinstance(fn, functools.partial):
+        fn = fn.func
+    return getattr(fn, "stage_resident", False)
+
+
 def slot_keys(tensors) -> list:
     """The static input slots of a call's tensors: the k-th tensor of one
     shape, dtype and device takes slot k of that kind."""
@@ -457,6 +494,7 @@ class StageGraphs:
         self.slots = {}           # slot_keys entry -> static input buffer
         self.pools = {}           # device -> the pool its graphs share
         self.done = {}            # device -> event after the last clones
+        self.resident = set()     # storages of resident steps' outputs
         self._lock = threading.Lock()
         self._holds = 0           # open hold() contexts
         self._held = set()        # stage keys called inside them
@@ -493,9 +531,14 @@ class StageGraphs:
                                f"captured inside another capture")
         key = stage_key(name, fn, args)
         with self._lock, torch.cuda.device(dev):
+            in_place = self.in_place(tensors)
+            key += tuple((i, t.data_ptr(), t.stride())
+                         for i, (t, r) in enumerate(zip(tensors, in_place))
+                         if r)
             graph = self.graphs.get(key)
             if graph is None:
-                graph = self.first_call(name, fn, args, tensors, dev)
+                graph = self.first_call(name, fn, args, tensors, dev,
+                                        in_place)
                 self.graphs[key] = graph
             if self._holds:
                 self._held.add(key)
@@ -506,12 +549,24 @@ class StageGraphs:
             graph.replay()
             if end is not None:
                 end.record(stream)
+            if is_resident(fn):
+                graph.done.record(stream)
+                return graph.output
             return graph.result()
 
-    def first_call(self, name, fn, args, tensors, dev) -> CapturedFrame:
+    def in_place(self, tensors) -> list:
+        """For each tensor, whether it is a resident step's output, which a
+        graph reads where it is."""
+        return [t.untyped_storage().data_ptr() in self.resident
+                for t in tensors]
+
+    def first_call(self, name, fn, args, tensors, dev,
+                   in_place=None) -> CapturedFrame:
         """Warm up on the caller's tensors, make room, capture into the
-        device's shared pool on the slots, and hand the outputs' memory
-        back to the pool (the module's docstring)."""
+        device's shared pool on the slots (a resident step's output in
+        place), and hand the outputs' memory back to the pool, or keep it
+        for a resident step (the module's docstring)."""
+        in_place = in_place or [False] * len(tensors)
         bound = _Bound(name, fn, args)
         while True:
             try:
@@ -520,18 +575,30 @@ class StageGraphs:
             except torch.cuda.OutOfMemoryError:
                 if not self.free_memory():
                     raise
-        keys = slot_keys(tensors)
+        copied = [t for t, r in zip(tensors, in_place) if not r]
+        keys = slot_keys(copied)
         self.make_room(capture_need(warm) + nbytes(tuple(
-            t for t, k in zip(tensors, keys) if k not in self.slots)), dev)
+            t for t, k in zip(copied, keys) if k not in self.slots)), dev)
         for k in keys:
             if k not in self.slots:
                 self.slots[k] = torch.empty(k[0], dtype=k[1], device=k[2])
-        inputs = [self.slots[k] for k in keys]
+        slots = iter([self.slots[k] for k in keys])
+        inputs = [t if r else next(slots) for t, r in zip(tensors, in_place)]
         if dev not in self.pools:
             self.pools[dev] = torch.cuda.graph_pool_handle()
             self.done[dev] = torch.cuda.Event()
         graph = capture(bound, inputs, (), dev, warm, self.pools[dev])
-        graph.output = map_tensors(borrowed, graph.output)
+        if is_resident(fn):
+            outs = {t.untyped_storage().data_ptr()
+                    for t in leaves(graph.output)}
+            if outs & {s.untyped_storage().data_ptr()
+                       for s in self.slots.values()}:
+                raise ValueError(f"resident step {name} returns an input "
+                                 f"it was given in a slot, which other "
+                                 f"steps overwrite")
+            self.resident |= outs
+        else:
+            graph.output = map_tensors(borrowed, graph.output)
         graph.done = self.done[dev]
         return graph
 
@@ -560,6 +627,7 @@ class StageGraphs:
         if self.graphs or self.slots:
             self.graphs.clear()
             self.slots.clear()
+            self.resident.clear()
             self.pools.clear()
             self.done.clear()
             torch.cuda.empty_cache()

@@ -681,6 +681,63 @@ def test_sharded_pipelines_on_the_card_equal_unsharded(mesh):
         assert all(r[k]["launches"] == want for r in ranks)
 
 
+SHARDED_KW = dict(d_max=15, radius=4, arm_len=6, r_iters=2, k_iters=2)
+
+
+@pytest.fixture(scope="module", params=["gloo", "nccl"])
+def one_rank(request):
+    """One rank of each backend on the card, both methods on the (1, 1, 1)
+    mesh, the steps replayed and eager, two frames each: (backend, the
+    cases, the rank's records, the pair)."""
+    from stereo_matchin_tpu_torch.parallel.distributed import spawn
+    from stereo_matchin_tpu_torch.parallel.dryrun import Case, sharded_maps
+
+    cuda_device()
+    pairs = [unorm8_pair(np.random.default_rng(s), 48, 64) for s in (3, 4)]
+    pair = tuple(np.stack([p[k] for p in pairs]) for k in (0, 1))
+    cases = [Case(m, (1, 1, 1), SHARDED_KW, "p", run=run)
+             for m in ("asw", "cross") for run in ("replay", "eager")]
+    (recs,) = spawn(sharded_maps, 1, request.param,
+                    (cases, {"p": pair}, "cuda", 2), 300)
+    return request.param, cases, recs, pair
+
+
+@pytest.mark.parametrize("method", ["asw", "cross"])
+def test_replayed_shard_steps_equal_eager_on_one_rank(one_rank, method):
+    """A world-size-1 gloo rank and an NCCL rank: the shard's steps replayed
+    from CUDA graphs (the default runner) give the eager steps' maps
+    (utils.call_stage) and the unsharded frames bit for bit, every frame
+    (the first, which captures, included) launches one frame's kernels,
+    and the replayed case held step graphs."""
+    backend, cases, recs, (left, right) = one_rank
+    dev = cuda_device()
+    got = {c.run: r for c, r in zip(cases, recs) if c.method == method}
+    cfg = TINY_CONFIG.replace(**SHARDED_KW)
+    model = asw.asw_pipeline if method == "asw" else cross_based.cross_pipeline
+    for b in range(left.shape[0]):
+        want = model(*(torch.from_numpy(a[b]).to(dev) for a in (left, right)),
+                     cfg)
+        for f, w in want._asdict().items():
+            if f in got["replay"]["maps"]:
+                for run in ("replay", "eager"):
+                    np.testing.assert_array_equal(
+                        got[run]["maps"][f][b], n(w), err_msg=f"{run} {f}")
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    frames = left.shape[0]
+    if method == "asw":
+        want.update(asw_den=2 * frames, asw_pass_win=cfg.r_iters * frames,
+                    asw_pass_h=cfg.r_iters * frames,
+                    two_min=(cfg.k_iters + 1) * frames)
+    else:
+        want.update(cross_arms=2 * frames, sad_volume=frames,
+                    oii_pass_h=frames, oii_pass_v=frames, vote_h=frames,
+                    vote_v=frames)
+    for run in ("replay", "eager"):
+        assert got[run]["frame_launches"] == [want, want], (backend, run)
+    assert got["replay"]["stages"]["graphs"] > 0
+    assert got["eager"]["stages"]["graphs"] == 0
+
+
 def _png_pairs(root, count, H, W):
     """`count` seeded UNORM8 PNG pairs under root/pair<k>/, as StereoPairs."""
     from stereo_matchin_tpu_torch.io import StereoPair, png
