@@ -6,9 +6,13 @@ sm_90a), nvcc and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels K1-K8 from `stereo_matchin_tpu_torch/csrc`,
-holds each against its plain PyTorch version on the card (K1/K2 and K5-K8
-also at the edge shapes of their tile plans), drives the ASW
+It builds the CUDA kernels K1-K10 from `stereo_matchin_tpu_torch/csrc`,
+first holds the expf that K9 is compiled with against torch.exp on every
+float32 in [-80, 0] (phase 2b; any difference fails: K9 runs on every ASW
+path), holds each kernel against its plain PyTorch version on the card
+(K1/K2 and K5-K8 also at the edge shapes of their tile plans; K9/K10,
+the weight strips and refinement passes, at 288x384, 375x450, their edge
+shapes and row shards in phase 3b, at config 3 in phase 14), drives the ASW
 and the cross-based pipelines at REFERENCE_CONFIG on the committed
 fixture pair through the kernels and through the plain ops, checks the
 launch counts of each path and its output against the JAX package's
@@ -104,11 +108,15 @@ FIXTURE = ROOT / "tests" / "data" / "asw_torch_fixture.npz"
 CROSS_FIXTURE = ROOT / "tests" / "data" / "cross_torch_fixture.npz"
 CSRC = "stereo_matchin_tpu_torch/csrc"
 TPU_KERNELS = "stereo_matchin_tpu/kernels"
+TPU_OPS = "stereo_matchin_tpu/ops"
 # One entry per CUDA kernel launch site: (name, CUDA source, replaced
 # pallas_call site(s), launch counter, path whose launches it reports).
 # K1-K4 run on the ASW path, K5-K8 on the cross path; the band drivers'
 # path ("bands") launches K1/K2 with a disparity chunk's offset d0 (the
-# d-chunked grid kernels) and the windowed K2 (the wavefront).
+# d-chunked grid kernels) and the windowed K2 (the wavefront).  K9/K10
+# replace no pallas_call: their "replaces" names the JAX function whose
+# XLA fusion they stand for; K10 win runs on the sharded path ("sharded",
+# per rank and frame at config 3 on (1, 2, 2)).
 KERNELS = [
     ("asw_den", f"{CSRC}/asw_aggregation.cu",
      f"{TPU_KERNELS}/asw_aggregation_dres.py:319", "asw_den", "asw"),
@@ -141,6 +149,14 @@ KERNELS = [
      f"{TPU_KERNELS}/asw_aggregation.py:354", "asw_pass_v", "bands"),
     ("asw_pass_h_chunk", f"{CSRC}/asw_aggregation.cu",
      f"{TPU_KERNELS}/asw_aggregation.py:417", "asw_pass_h", "bands"),
+    ("support_w", f"{CSRC}/asw_refine.cu", f"{TPU_OPS}/support.py:29",
+     "support_w", "asw"),
+    ("refine_v", f"{CSRC}/asw_refine.cu", f"{TPU_OPS}/refinement.py:46",
+     "refine_v", "asw"),
+    ("refine_h", f"{CSRC}/asw_refine.cu", f"{TPU_OPS}/refinement.py:62",
+     "refine_h", "asw"),
+    ("refine_win", f"{CSRC}/asw_refine.cu",
+     "stereo_matchin_tpu/parallel/ops_tiled.py:151", "refine_win", "sharded"),
 ]
 # BASELINE config 3 (Middlebury 2014 full size) and the band count the JAX
 # package runs it at.
@@ -583,6 +599,288 @@ def time_kernels(left, right, cfg, stats, smi):
         stats[name].update(times)
         print(f"  {name}: {line}  (D={D}, {left.shape[0]}x{left.shape[1]}, "
               f"T={2 * R + 1}; {smi})")
+
+
+EXP_LOW = -80.0                 # the exp phase's range: every float32 in
+                                # [EXP_LOW, 0]; the weights' arguments never
+                                # leave [-(765 / 10.94 + 16 / 28.21), 0]
+# Edge shapes of K9/K10, (radius, H, W): T = 1; H and W under T; a narrow
+# frame; a ragged width past two blocks of BLOCK[0] columns.
+REFINE_EDGES = [(0, 7, 9), (16, 10, 20), (16, 40, 13), (5, 3, 130),
+                (16, 33, 257)]
+# Row tiles of K9 axis 0 and the windowed K10, (radius, H_loc, W, row0,
+# h_glob): the (1, 2, 2) shards of 288x384 (top and bottom), a middle
+# shard, and a tile shorter than its taps at the frame's bottom.
+REFINE_TILES = [(16, 144, 384, 0, 288), (16, 144, 384, 144, 288),
+                (16, 96, 450, 96, 375), (2, 5, 30, 7, 12),
+                (16, 10, 40, 10, 20)]
+
+
+def exp_phase():
+    """nvcc's expf as K9 is compiled (kernels/asw_refine.py expf) against
+    torch.exp on the card, on every float32 in [EXP_LOW, 0] (bit patterns
+    0x80000000 .. fl32(EXP_LOW), and +0.0).  Returns the count that differ
+    and the first (up to 8) differing inputs with both results."""
+    import torch
+
+    from stereo_matchin_tpu_torch.kernels import asw_refine as kr
+
+    lo = -2**31                                     # -0.0
+    hi = int(np.float32(EXP_LOW).view(np.int32))    # the last, fl32(EXP_LOW)
+    chunk = 1 << 27
+    differing, first = 0, []
+    t0 = time.perf_counter()
+    starts = list(range(lo, hi + 1, chunk))
+    for start in starts + [None]:
+        if start is None:                           # +0.0
+            x = torch.zeros(1, dtype=torch.float32, device="cuda")
+        else:
+            x = torch.arange(start, min(start + chunk, hi + 1),
+                             dtype=torch.int32, device="cuda").view(
+                                 torch.float32)
+        a, b = kr.expf(x), torch.exp(x)
+        ne = a.view(torch.int32) != b.view(torch.int32)
+        n = int(ne.sum())
+        differing += n
+        for i in ne.nonzero().flatten()[:8 - len(first)].tolist():
+            first.append({"x": float(x[i]), "expf": float(a[i]),
+                          "torch_exp": float(b[i])})
+    torch.cuda.synchronize()
+    tested = hi - lo + 2
+    return {"tested": tested, "differing": differing, "first": first,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def refine_inputs(rng, H, W, d_max, rows=None):
+    """A refinement round's maps on the card: d on the disparity grid
+    (integers in [0, d_max]) and conf in (0, 1], `rows` rows (default
+    H)."""
+    import torch
+
+    rows = H if rows is None else rows
+    d = rng.integers(0, d_max + 1, (rows, W)).astype(np.float32)
+    conf = rng.uniform(0.001, 1.0, (rows, W)).astype(np.float32)
+    return torch.from_numpy(d).cuda(), torch.from_numpy(conf).cuda()
+
+
+def check_refine_case(label, img, radius, gammas, d, conf, stats, eps=1e-5):
+    """K9 on both axes and K10 v and h (then h on K10 v's outputs, as a
+    round runs them) on one image against their plain versions, 0 ulp;
+    also K10 v on a strip cropped by a row on each side (a view: the
+    kernel reads its planes in place)."""
+    from stereo_matchin_tpu_torch import ops
+
+    R = radius
+    wv, wh = (ops.support_weights(img, R, *gammas, axis, kernels="jnp")
+              for axis in (0, 1))
+    for axis, want in ((0, wv), (1, wh)):
+        compare(f"support_w {label} axis={axis}",
+                [ops.support_weights(img, R, *gammas, axis,
+                                     kernels="pallas")], [want],
+                stats["support_w"])
+    vv = ops.refine_pass_v(wv, d, conf, R, eps, kernels="jnp")
+    compare(f"refine_v {label}",
+            ops.refine_pass_v(wv, d, conf, R, eps, kernels="pallas"), vv,
+            stats["refine_v"])
+    compare(f"refine_h {label}",
+            ops.refine_pass_h(wh, *vv, conf, R, eps, kernels="pallas"),
+            ops.refine_pass_h(wh, *vv, conf, R, eps, kernels="jnp"),
+            stats["refine_h"])
+    H = img.shape[0]
+    if H > 2:
+        crop = wv[:, 1:H - 1]
+        dc, cc = d[1:H - 1], conf[1:H - 1]
+        compare(f"refine_v {label} cropped strip",
+                ops.refine_pass_v(crop, dc, cc, R, eps, kernels="pallas"),
+                ops.refine_pass_v(crop.contiguous(), dc, cc, R, eps,
+                                  kernels="jnp"), stats["refine_v"])
+
+
+def check_refine_tile(label, frame, radius, gammas, d, conf, row0, h_loc,
+                      stats, eps=1e-5):
+    """A row shard of `frame` (h_glob, W, 3): K9 axis 0 on the centre rows
+    of its halo-padded tile (parallel/ops_tiled.py support_weights_tiled)
+    and K10 win on its exchanged maps, against their plain versions and
+    against the whole frame's strip and K10 v on those rows, 0 ulp."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.parallel import ops_tiled
+
+    R, halo = radius, max(radius, 1)
+    h_glob = frame.shape[0]
+    rows = lambda a, b: torch.arange(a, b, device="cuda").clamp(0, h_glob - 1)
+    tile = frame[rows(row0 - halo, row0 + h_loc + halo)].contiguous()
+    w = ops_tiled.support_weights_tiled(tile, R, *gammas, row0, h_glob, halo,
+                                        kernels="pallas")
+    compare(f"support_w tile {label}", [w],
+            [ops_tiled.support_weights_tiled(tile, R, *gammas, row0, h_glob,
+                                             halo, kernels="jnp")],
+            stats["support_w"])
+    whole = ops.support_weights(frame, R, *gammas, 0, kernels="pallas")
+    compare(f"support_w tile {label} against the whole frame's rows", [w],
+            [whole[:, row0:row0 + h_loc].contiguous()], stats["support_w"])
+    win = rows(row0 - R, row0 + h_loc + R)
+    d_win, c_win = d[win].contiguous(), conf[win].contiguous()
+    got = ops.refine_pass_v_win(w, d_win, c_win, eps, kernels="pallas")
+    compare(f"refine_win tile {label}", got,
+            ops.refine_pass_v_win(w, d_win, c_win, eps, kernels="jnp"),
+            stats["refine_win"])
+    v = ops.refine_pass_v(whole, d, conf, R, eps, kernels="pallas")
+    compare(f"refine_win tile {label} against the whole frame's v pass",
+            got, [x[row0:row0 + h_loc] for x in v], stats["refine_win"])
+
+
+def check_refine_kernels(pairs, cfg, stats):
+    """K9/K10 against their plain versions on the card, 0 ulp: both views
+    of each pair with the support and the refinement gammas, then
+    REFINE_EDGES and REFINE_TILES on seeded images."""
+    import torch
+
+    rng = np.random.default_rng(29)
+    both = ((cfg.gamma_c, cfg.gamma_p), (cfg.ref_gamma_c, cfg.ref_gamma_p))
+    for label, (left, right) in pairs.items():
+        H, W = left.shape[:2]
+        d, conf = refine_inputs(rng, H, W, cfg.d_max)
+        for view, img in (("left", left), ("right", right)):
+            for gammas in both:
+                check_refine_case(f"{label} {view} gammas={gammas}", img,
+                                  cfg.radius, gammas, d, conf, stats)
+    for R, H, W in REFINE_EDGES:
+        img = random_pair(rng, H, W)[0]
+        check_refine_case(f"edge R={R} {H}x{W}", img, R, both[1],
+                          *refine_inputs(rng, H, W, cfg.d_max), stats)
+    for R, h_loc, W, row0, h_glob in REFINE_TILES:
+        frame = random_pair(rng, h_glob, W)[0]
+        check_refine_tile(f"R={R} rows {row0}..{row0 + h_loc} of {h_glob} "
+                          f"x {W}", frame, R, both[1],
+                          *refine_inputs(rng, h_glob, W, cfg.d_max), row0,
+                          h_loc, stats)
+    torch.cuda.synchronize()
+
+
+def refine_work(name, T, H, W, rows=None):
+    """(bytes, ops) of one K9/K10 launch over an (H, W) output: K9 reads
+    its (rows, W, 3) image once and writes T H W floats, 15 operations an
+    output (three scales, three differences, three abs, two adds, two
+    scales, a subtract and the exp counted as one); K10 reads the T H W
+    strip and its maps once ((rows, W) each: two, three in mode h) and
+    writes value and den, 4 operations a tap (6 in mode h) and a divide."""
+    rows = H if rows is None else rows
+    if name == "support_w":
+        return rows * W * 3 * 4 + T * H * W * 4, 15 * T * H * W
+    maps = 3 if name == "refine_h" else 2
+    per_tap = 6 if name == "refine_h" else 4
+    return (T * H * W * 4 + maps * rows * W * 4 + 2 * H * W * 4,
+            (per_tap * T + 1) * H * W)
+
+
+def refine_timing_cases(img, cfg, rng, h_loc=None):
+    """{name: (kernel, plain, (bytes, ops), where)} for K9 and K10 on one
+    view of a frame: K9 the vertical refinement strip; K10 v and h at the
+    frame, win at a row shard of h_loc rows (default half the frame, the
+    (1, 2, 2) mesh's shard).  K10 reads its strip in turn from four copies,
+    more than the 50 MB L2 holds at 288x384, so each call reads from HBM."""
+    from stereo_matchin_tpu_torch import ops
+
+    R, eps = cfg.radius, cfg.eps
+    H, W = img.shape[:2]
+    T = 2 * R + 1
+    h_loc = H // 2 if h_loc is None else h_loc
+    gam = (cfg.ref_gamma_c, cfg.ref_gamma_p)
+    wv = ops.support_weights(img, R, *gam, 0, kernels="jnp")
+    wh = ops.support_weights(img, R, *gam, 1, kernels="jnp")
+    d, conf = refine_inputs(rng, H, W, cfg.d_max)
+    vv, dv = ops.refine_pass_v(wv, d, conf, R, eps, kernels="jnp")
+    d_win, c_win = d[:h_loc + 2 * R].contiguous(), conf[:h_loc + 2 * R].contiguous()
+    ww = wv[:, :h_loc].contiguous()
+    vs = itertools.cycle([wv] + [wv.clone() for _ in range(3)])
+    hs = itertools.cycle([wh] + [wh.clone() for _ in range(3)])
+    ws = itertools.cycle([ww] + [ww.clone() for _ in range(3)])
+    at = f"{H}x{W}, T={T}"
+    return {
+        "support_w": (
+            lambda: ops.support_weights(img, R, *gam, 0, kernels="pallas"),
+            lambda: ops.support_weights(img, R, *gam, 0, kernels="jnp"),
+            refine_work("support_w", T, H, W), at + ", axis 0"),
+        "refine_v": (
+            lambda: ops.refine_pass_v(next(vs), d, conf, R, eps,
+                                      kernels="pallas"),
+            lambda: ops.refine_pass_v(wv, d, conf, R, eps, kernels="jnp"),
+            refine_work("refine_v", T, H, W), at),
+        "refine_h": (
+            lambda: ops.refine_pass_h(next(hs), vv, dv, conf, R, eps,
+                                      kernels="pallas"),
+            lambda: ops.refine_pass_h(wh, vv, dv, conf, R, eps,
+                                      kernels="jnp"),
+            refine_work("refine_h", T, H, W), at),
+        "refine_win": (
+            lambda: ops.refine_pass_v_win(next(ws), d_win, c_win, eps,
+                                          kernels="pallas"),
+            lambda: ops.refine_pass_v_win(ww, d_win, c_win, eps,
+                                          kernels="jnp"),
+            refine_work("refine_win", T, h_loc, W, h_loc + 2 * R),
+            f"{h_loc} of {H} rows x {W}, T={T}"),
+    }
+
+
+def time_refine_kernels(left, cfg, stats, smi):
+    """K9/K10 and their plain versions at 288x384 REFERENCE_CONFIG, eager
+    and replayed from a graph, beside their bounds (the kernels line)."""
+    cases = refine_timing_cases(left, cfg, np.random.default_rng(31))
+    for name, (kern, plain, work, at) in cases.items():
+        record_work(stats, name, *work)
+        times, line = turns(kern, plain, 20, 3)
+        stats[name].update(times)
+        bound_ms, bound_by = bound(stats[name])
+        print(f"  {name}: {line}  ({at}; bound {bound_ms:.4f} ms by "
+              f"{bound_by}; {smi})")
+
+
+def refine_kernels_config3(left, cfg, smi):
+    """K9/K10 at config 3's shapes against their plain versions (0 ulp) and
+    timed: K9 and K10 v/h on the whole 5.7 M-pixel frame (a strip is 756
+    MB), K10 win on a row shard of a (1, 2, 2) mesh, and K9 on the centre
+    rows of an interior band's tile, a view of a band's crop for K10 v.
+    Returns one JSON-ready line."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.models import wavefront
+    from stereo_matchin_tpu_torch.parallel import ops_tiled
+
+    R, eps = cfg.radius, cfg.eps
+    H, W = left.shape[:2]
+    gam = (cfg.ref_gamma_c, cfg.ref_gamma_p)
+    rng = np.random.default_rng(37)
+    local = {name: {} for name in ("support_w", "refine_v", "refine_h",
+                                   "refine_win")}
+    d, conf = refine_inputs(rng, H, W, cfg.d_max)
+    check_refine_case("config 3", left, R, gam, d, conf, local)
+    g = wavefront.plan_bands(H, CONFIG3_BANDS, cfg)[1]
+    check_refine_tile(f"config 3 band rows {g.s}..{g.e}", left, R, gam, d,
+                      conf, g.s, g.e - g.s, local)
+    whole = ops.support_weights(left, R, *gam, 0, kernels="jnp")
+    crop = whole[:, g.s:g.e]
+    compare(f"refine_v config 3 band crop {g.s}..{g.e}",
+            ops.refine_pass_v(crop, d[g.s:g.e], conf[g.s:g.e], R, eps,
+                              kernels="pallas"),
+            ops.refine_pass_v(crop.contiguous(), d[g.s:g.e], conf[g.s:g.e],
+                              R, eps, kernels="jnp"), local["refine_v"])
+    del whole, crop
+    out = []
+    for name, (kern, plain, work, at) in refine_timing_cases(
+            left, cfg, rng).items():
+        times, line = turns(kern, plain, 3, 1)
+        bound_ms, bound_by = bound({"bytes": work[0], "ops": work[1]})
+        print(f"  {name}: {line}  ({at}; bound {bound_ms:.4f} ms by "
+              f"{bound_by}; {smi})")
+        out.append({"name": name, "at": at, **times, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": work[0],
+                    "max_abs_err": local[name].get("max_abs_err", 0.0)})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
 
 
 def cross_inputs(left, right, cfg, D=None, d0=0):
@@ -1222,13 +1520,16 @@ def expected_asw_launches(cfg, bands, route, kernels):
     """Launches of one ASW frame: c = disparity chunks, per chunk and band
     K1 x2 and r levels of K2; the wavefront's first band runs the clamped
     vertical pass, its later bands the windowed one; K3 and K4 k+1 times
-    per band."""
+    per band; per band K9 for the 8 strips and K10 v and h 2k times (two
+    views a round)."""
     D = cfg.num_disp
     chunk = -(-D // max(cfg.aggr_d_chunks, 1))
     c, r, k = -(-D // chunk), cfg.r_iters, cfg.k_iters
     want = dict.fromkeys(kernels.LAUNCHES, 0)
     want.update(asw_den=2 * c * bands, asw_pass_h=c * r * bands,
-                two_min=(k + 1) * bands, wta_diag=(k + 1) * bands)
+                two_min=(k + 1) * bands, wta_diag=(k + 1) * bands,
+                support_w=8 * bands, refine_v=2 * k * bands,
+                refine_h=2 * k * bands)
     if route == "wavefront":
         want.update(asw_pass_v=c * r, asw_pass_win=c * r * (bands - 1))
     else:
@@ -1671,11 +1972,14 @@ def scene_batch(dev, seed, H, W, d_max):
 def sharded_launches(method, cfg, kernels):
     """Launches of one frame on one rank of the sharded pipelines: K1 x2,
     the windowed K2 and K2 h r times, K3 k + 1 times at the shard's d0 (the
-    target scan is plain), or K5 x2 and K6-K8 once each."""
+    target scan is plain), K9 for the 8 strips, K10 win and h 2k times;
+    or K5 x2 and K6-K8 once each."""
     want = dict.fromkeys(kernels.LAUNCHES, 0)
     if method == "asw":
+        k = cfg.k_iters
         want.update(asw_den=2, asw_pass_win=cfg.r_iters,
-                    asw_pass_h=cfg.r_iters, two_min=cfg.k_iters + 1)
+                    asw_pass_h=cfg.r_iters, two_min=k + 1, support_w=8,
+                    refine_win=2 * k, refine_h=2 * k)
     else:
         want.update(cross_arms=2, sad_volume=1, oii_pass_h=1, oii_pass_v=1,
                     vote_h=1, vote_v=1)
@@ -3134,6 +3438,17 @@ def main() -> int:
           f"{[str(s.relative_to(ROOT)) for s in _build.sources()]} in "
           f"{time.perf_counter() - t0:.1f} s ({smi})")
 
+    phase(f"2b. expf as K9 is compiled against torch.exp on every float32 "
+          f"in [{EXP_LOW}, 0]")
+    exp_report = exp_phase()
+    print(f"  {exp_report['differing']} of {exp_report['tested']} inputs "
+          f"differ (first: {exp_report['first']}) in "
+          f"{exp_report['seconds']} s")
+    print(json.dumps({"expf_against_torch_exp": exp_report, "card": smi}))
+    if exp_report["differing"]:
+        raise AssertionError("K9's expf differs from torch.exp: K9 cannot "
+                             "equal its plain version on the main path")
+
     cfg = REFERENCE_CONFIG
     fx = np.load(FIXTURE)
     left, right = (torch.from_numpy((fx[k] / np.float32(255.0)).astype(
@@ -3146,6 +3461,11 @@ def main() -> int:
     check_kernels(pairs, cfg, stats)
     check_aggregation_edges(stats)
     time_kernels(left, right, cfg, stats, smi)
+
+    phase("3b. K9 support_w and K10 refine_pass against their plain "
+          "versions on the card: 288x384, 375x450, edges, row shards; timed")
+    check_refine_kernels(pairs, cfg, stats)
+    time_refine_kernels(left, cfg, stats, smi)
 
     phase("4. ASW slice at REFERENCE_CONFIG: kernels against plain ops")
     kernels.reset_launches()
@@ -3312,6 +3632,8 @@ def main() -> int:
           f"aggr_d_chunks 4")
     l3, r3 = config3_pair(3)
     band_kernels_config3(l3, r3, c3, stats, smi)
+    print(json.dumps({"config3_refine": refine_kernels_config3(l3, c3, smi),
+                      "card": smi}))
     del l3, r3
 
     phase(f"15. config 3 ASW through the kernels: whole frame, wavefront and "
@@ -3405,7 +3727,7 @@ def main() -> int:
 
     path_launches = {
         "asw": launches, "cross": cross_launches,
-        "bands": band_launches["wavefront"]}
+        "bands": band_launches["wavefront"], "sharded": sharded["asw"]}
     report = {"kernels": []}
     for name, source, replaces, key, path in KERNELS:
         bound_ms, bound_by = bound(stats[name])
@@ -3420,9 +3742,10 @@ def main() -> int:
             "plain_ms": stats[name]["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             # No single PyTorch call computes any of these functions (the
-            # weights differ per tap and plane, the order of the f32 sums
-            # is fixed, the arms and votes have no library form), so none
-            # is timed; PERF.md section 6 gives the reason per kernel.
+            # weights differ per tap and plane, and per pixel in K9/K10's
+            # taps, the order of the f32 sums is fixed, the arms and votes
+            # have no library form), so none is timed; PERF.md section 6
+            # gives the reason per kernel.
             "library_ms": None})
     for entry in report["kernels"]:
         if entry["launches"] < 1:

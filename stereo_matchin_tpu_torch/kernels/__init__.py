@@ -10,6 +10,15 @@
   K6 sad_volume.sad_volume     — SAD cost volume
   K7 cross_oii.oii_pass        — one horizontal or vertical OII windowed mean
   K8 cross_oii.vote_h / vote_v — histogram vote: row counts, then the mode
+  K9 asw_refine.support_w      — one support-weight strip (T, H, W)
+  K10 asw_refine.refine_pass   — one refinement pass: vertical (rows
+                                 clamped, or a window of real rows) or
+                                 horizontal
+
+K1-K8 replace the JAX package's pallas_calls; K9 and K10 replace none:
+they are the fusions XLA makes of the JAX functions' per-tap chains
+(ops/support.py support_weights, ops/refinement.py refine_pass_v/_h) in
+its jitted ASW frame.
 
 Sources live in `csrc/`; `_build.library()` compiles them with nvcc at
 first use.  Each wrapper takes its plain PyTorch version for a CPU tensor
@@ -24,9 +33,11 @@ import torch
 
 # Launch count per kernel, incremented only where the kernel is launched
 # (never on the plain CPU route); asw_pass and oii_pass count their two
-# axes apart, and the windowed vertical pass apart from both.
+# axes apart, and the windowed vertical pass apart from both; K10 counts
+# each of its three modes apart.
 ASW_KERNELS = ("asw_den", "asw_pass_v", "asw_pass_h", "asw_pass_win",
-               "two_min", "wta_diag")
+               "two_min", "wta_diag", "support_w", "refine_v", "refine_win",
+               "refine_h")
 CROSS_KERNELS = ("cross_arms", "sad_volume", "oii_pass_h", "oii_pass_v",
                  "vote_h", "vote_v")
 LAUNCHES = dict.fromkeys(ASW_KERNELS + CROSS_KERNELS, 0)

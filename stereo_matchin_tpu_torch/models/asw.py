@@ -10,7 +10,8 @@ they are computed once (`asw_weights`) and handed to
 `asw_pipeline_from_weights`; a test can hand in the JAX package's weights
 instead (convert.weights_from_jax).  Everything runs on the device of the
 input tensors; cfg.kernels picks the CUDA kernels or the plain ops for
-the aggregation and the WTAs (see kernels.use_kernels).
+the weight strips (K9), the aggregation (K1/K2), the WTAs (K3/K4) and the
+refinement passes (K10) (see kernels.use_kernels).
 
 cfg.aggr_d_chunks = n runs the SAD cost and the aggregation ladder per
 disparity chunk of ceil(D / n) planes (`_chunk_geometry`), so the (D, H, W)
@@ -76,13 +77,15 @@ def asw_weights(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
     R = cfg.radius
     ref = (R, cfg.ref_gamma_c, cfg.ref_gamma_p)
     sup = (R, cfg.gamma_c, cfg.gamma_p)
-    rv_l, rh_l = run("ref_w", ops.refinement_weights, left, *ref)
-    rv_r, rh_r = run("ref_w", ops.refinement_weights, right, *ref)
+    refinement_weights = partial(ops.refinement_weights, kernels=cfg.kernels)
+    support_weights = partial(ops.support_weights, kernels=cfg.kernels)
+    rv_l, rh_l = run("ref_w", refinement_weights, left, *ref)
+    rv_r, rh_r = run("ref_w", refinement_weights, right, *ref)
     return ASWWeights(
-        wv_l=run("supp_w", ops.support_weights, left, *sup, 0),
-        wh_l=run("supp_w", ops.support_weights, left, *sup, 1),
-        wv_r=run("supp_w", ops.support_weights, right, *sup, 0),
-        wh_r=run("supp_w", ops.support_weights, right, *sup, 1),
+        wv_l=run("supp_w", support_weights, left, *sup, 0),
+        wh_l=run("supp_w", support_weights, left, *sup, 1),
+        wv_r=run("supp_w", support_weights, right, *sup, 0),
+        wh_r=run("supp_w", support_weights, right, *sup, 1),
         rv_l=rv_l, rh_l=rh_l, rv_r=rv_r, rh_r=rh_r)
 
 
@@ -221,16 +224,18 @@ def asw_postaggregate(aggr: torch.Tensor, weights: ASWWeights,
     filled_q, right_q = cons.filled, wta_right_img * cfg.d_max
     conf_ref, conf_tar = cons.conf_ref, cons.conf_target
     wta_refined = partial(ops.wta_refined_fast, big=cfg.big, kernels=kern)
+    refine_v = partial(ops.refine_pass_v, kernels=kern)
+    refine_h = partial(ops.refine_pass_h, kernels=kern)
     for _ in range(cfg.k_iters):
         # ops.refine_view's two passes, one stage each.
-        vv_l, dv_l = run("v_ref_L", ops.refine_pass_v, rv_l, filled_q,
-                         conf_ref, R, cfg.eps)
-        val_l, den_l = run("h_ref_L", ops.refine_pass_h, rh_l, vv_l, dv_l,
-                           conf_ref, R, cfg.eps)
-        vv_r, dv_r = run("v_ref_R", ops.refine_pass_v, rv_r, right_q,
-                         conf_tar, R, cfg.eps)
-        val_r, den_r = run("h_ref_R", ops.refine_pass_h, rh_r, vv_r, dv_r,
-                           conf_tar, R, cfg.eps)
+        vv_l, dv_l = run("v_ref_L", refine_v, rv_l, filled_q, conf_ref, R,
+                         cfg.eps)
+        val_l, den_l = run("h_ref_L", refine_h, rh_l, vv_l, dv_l, conf_ref,
+                           R, cfg.eps)
+        vv_r, dv_r = run("v_ref_R", refine_v, rv_r, right_q, conf_tar, R,
+                         cfg.eps)
+        val_r, den_r = run("h_ref_R", refine_h, rh_r, vv_r, dv_r, conf_tar,
+                           R, cfg.eps)
         r = run("wta_ref", wta_refined, aggr, val_l, den_l, val_r, den_r,
                 cfg.penalty)
         if cfg.wta_ref_conf_bug:

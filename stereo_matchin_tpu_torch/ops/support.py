@@ -16,6 +16,10 @@ CPU kernels and CUDA by a few ulp, so these weights match the JAX
 package's only to a stated bound (tests/test_torch_ops.py); the pipeline
 tests carry the JAX weights across (convert.weights_from_jax) where they
 need equal inputs.
+
+kernels="auto" (kernels.use_kernels) computes a strip with the CUDA
+kernel K9 (kernels/asw_refine.py support_w) on a CUDA tensor: the fusion
+of this chain that XLA makes of the JAX function, bit-equal to it.
 """
 
 from __future__ import annotations
@@ -26,18 +30,30 @@ import torch
 from .common import edge_pad
 
 
+def weight_scales(gamma_c: float, gamma_p: float) -> tuple:
+    """(inv_c, inv_p): fl32(1 / gamma_c) and fl32(1 / gamma_p), as floats."""
+    return (float(np.float32(1.0) / np.float32(gamma_c)),
+            float(np.float32(1.0) / np.float32(gamma_p)))
+
+
 def support_weights(img: torch.Tensor, radius: int, gamma_c: float,
                     gamma_p: float, axis: int, row0: int = 0,
-                    h_glob: int | None = None) -> torch.Tensor:
+                    h_glob: int | None = None,
+                    kernels: str = "auto") -> torch.Tensor:
     """img: (H, W, 3) in [0, 1].  axis=0 -> vertical taps, 1 -> horizontal.
 
     Returns (T, H, W) float32, T = 2*radius + 1, tap t at offset t - radius.
     On axis 0, img may hold frame rows row0 .. row0 + H - 1 of an
     h_glob-row frame (default: the whole frame): the distance term clamps
     the neighbour's FRAME row, so a row shard's weights equal the whole
-    frame's where its taps stay inside img."""
-    inv_c = float(np.float32(1.0) / np.float32(gamma_c))
-    inv_p = float(np.float32(1.0) / np.float32(gamma_p))
+    frame's where its taps stay inside img.  kernels: K9 or these ops
+    (kernels.use_kernels)."""
+    from ..kernels import use_kernels
+
+    if use_kernels(kernels, img):
+        from ..kernels.asw_refine import support_w
+        return support_w(img, radius, gamma_c, gamma_p, axis, row0, h_glob)
+    inv_c, inv_p = weight_scales(gamma_c, gamma_p)
     p = img.movedim(-1, 0) * 255.0                           # (3, H, W)
     n = p.shape[1 + axis]
     ext = edge_pad(p, radius, radius, 1 + axis)

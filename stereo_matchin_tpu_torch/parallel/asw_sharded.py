@@ -17,9 +17,12 @@ support sums underflow eps).
 On CUDA tensors (cfg.kernels, kernels.use_kernels) a shard runs K1
 `asw_den` at its d0 for both axes, the windowed K2 `asw_pass_win` on each
 round's exchanged (Dl, H_loc + 2R, W) tile (its weights cover the centre
-rows only, so nothing is cropped), K2 h at d0 and K3 `two_min` at d0;
-elsewhere the plain versions of the same kernels.  The SAD cost is the
-plain `ops.sad_cost_volume` at d0, as on the unsharded path.  The maps
+rows only, so nothing is cropped), K2 h at d0 and K3 `two_min` at d0, K9
+`support_w` for the strips (the vertical ones on the centre rows of the
+exchanged image tile, at the shard's frame rows) and K10 `refine_win` and
+`refine_h` for the refinement passes; elsewhere the plain versions of
+the same kernels.  The SAD cost is the plain `ops.sad_cost_volume` at
+d0, as on the unsharded path.  The maps
 equal models.asw.asw_pipeline's bit for bit (tests pin sharded ==
 unsharded); only the schedule is distributed.
 
@@ -103,10 +106,12 @@ def _strips(left_pad, right_pad, left, right, cfg: StereoConfig, row0: int,
     R = cfg.radius
     sw = partial(support_weights_tiled, radius=R, row_start=row0,
                  h_global=h_glob, halo=max(R, 1), gamma_c=gamma_c,
-                 gamma_p=gamma_p)
+                 gamma_p=gamma_p, kernels=cfg.kernels)
     return (sw(left_pad), sw(right_pad),
-            ops.support_weights(left, R, gamma_c, gamma_p, 1),
-            ops.support_weights(right, R, gamma_c, gamma_p, 1))
+            ops.support_weights(left, R, gamma_c, gamma_p, 1,
+                                kernels=cfg.kernels),
+            ops.support_weights(right, R, gamma_c, gamma_p, 1,
+                                kernels=cfg.kernels))
 
 
 @graphs.resident
@@ -170,13 +175,15 @@ def _refine(pads, rv_l, rv_r, rh_l, rh_r, cfg: StereoConfig):
     """One refinement round after the exchange of its stacked maps (4,
     H_loc + 2R, W): both views' refinement passes.  Returns (val_l, den_l,
     val_r, den_r)."""
-    R, eps = cfg.radius, cfg.eps
+    R, eps, kern = cfg.radius, cfg.eps, cfg.kernels
     fq_pad, rq_pad, cr_pad, ct_pad = pads
     centre = slice(R, pads.shape[1] - R)
-    vv_l, dv_l = ops.refine_pass_v_win(rv_l, fq_pad, cr_pad, eps)
-    val_l, den_l = ops.refine_pass_h(rh_l, vv_l, dv_l, cr_pad[centre], R, eps)
-    vv_r, dv_r = ops.refine_pass_v_win(rv_r, rq_pad, ct_pad, eps)
-    val_r, den_r = ops.refine_pass_h(rh_r, vv_r, dv_r, ct_pad[centre], R, eps)
+    vv_l, dv_l = ops.refine_pass_v_win(rv_l, fq_pad, cr_pad, eps, kern)
+    val_l, den_l = ops.refine_pass_h(rh_l, vv_l, dv_l, cr_pad[centre], R, eps,
+                                     kern)
+    vv_r, dv_r = ops.refine_pass_v_win(rv_r, rq_pad, ct_pad, eps, kern)
+    val_r, den_r = ops.refine_pass_h(rh_r, vv_r, dv_r, ct_pad[centre], R, eps,
+                                     kern)
     return val_l, den_l, val_r, den_r
 
 

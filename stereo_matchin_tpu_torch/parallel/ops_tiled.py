@@ -13,11 +13,13 @@ takes the shard's offsets as arguments:
   support_weights_tiled -> support_weights_tiled below:
                            ops.support_weights anchored at the tile's
                            frame rows (row0, h_glob), centre rows kept
+                           (K9 on CUDA tensors, writing only those rows)
   asw_vpass_tiled       -> ops.asw_den_plain + ops.asw_pass_win_plain on
                            the (Dl, H_loc + 2R, W) tile (K1 and the
                            windowed K2 on CUDA tensors)
   asw_hpass             -> ops.asw_pass_plain(axis=2, d0) (K2 h)
-  refine_vpass_tiled    -> ops.refine_pass_v_win on the padded maps
+  refine_vpass_tiled    -> ops.refine_pass_v_win on the padded maps (K10
+                           win on CUDA tensors)
   median3x3_tiled       -> median3x3_tiled below
 """
 
@@ -31,16 +33,26 @@ from ..ops.support import support_weights
 
 def support_weights_tiled(img_padded: torch.Tensor, radius: int,
                           gamma_c: float, gamma_p: float, row_start: int,
-                          h_global: int, halo: int) -> torch.Tensor:
+                          h_global: int, halo: int,
+                          kernels: str = "auto") -> torch.Tensor:
     """Vertical support weights for the CENTRE rows of a halo-padded tile
     (H_loc + 2*halo, W, 3), halo >= radius; row_start: the global row of
     the first centre row.  Returns (T, H_loc, W), equal to the whole
-    frame's weights on those rows."""
+    frame's weights on those rows.  kernels (kernels.use_kernels): K9
+    writes the centre rows alone, the plain ops compute the whole tile's
+    strip and slice it."""
+    from ..kernels import use_kernels
+
     if halo < radius:
         raise ValueError(f"a halo of {halo} rows cannot serve radius {radius}")
+    rows = img_padded.shape[0] - 2 * halo
+    if use_kernels(kernels, img_padded):
+        from ..kernels.asw_refine import support_w
+        return support_w(img_padded, radius, gamma_c, gamma_p, 0,
+                         row_start - halo, h_global, (halo, rows))
     w = support_weights(img_padded, radius, gamma_c, gamma_p, 0,
-                        row_start - halo, h_global)
-    return w[:, halo:w.shape[1] - halo].contiguous()
+                        row_start - halo, h_global, kernels="jnp")
+    return w[:, halo:halo + rows].contiguous()
 
 
 def median3x3_tiled(img_padded: torch.Tensor) -> torch.Tensor:

@@ -121,10 +121,21 @@ step marked `resident` keeps its outputs where its graph wrote them:
     clones; the step's next replay overwrites them, so a caller uses them
     only before it calls that step again (a sharded frame's weights, its
     aggregation rounds' volume), and never returns them;
-  * they stay allocated in the shared pool while the graph lives, and a
-    later step that takes one of them reads it where it is: no slot and no
-    copy, its address part of that step's key (stable, since the resident
-    graph writes the same memory on every replay).
+  * they stay allocated while the graph lives, in a second pool of the
+    device that only resident steps share.  A capture may take any memory
+    that is free at that moment, so in the shared pool a resident step's
+    outputs could lie where a graph captured before it keeps its
+    temporaries or outputs, and that graph's next replay would overwrite
+    them (it did: a config-3 sharded frame's refinement strips, captured
+    after the first WTA's steps, whose graphs run again in every
+    refinement round).  Among resident steps the same holds, so a frame
+    calls them in the order of their first capture and uses a resident
+    output only until a resident step captured before it runs again (a
+    sharded frame: weights, rounds, pin, refinement strips; the next frame
+    computes them anew);
+  * a later step that takes one of them reads it where it is: no slot and
+    no copy, its address part of that step's key (stable, since the
+    resident graph writes the same memory on every replay).
 
 A stage's arguments may not nest a tensor in a tuple, list or dict: its
 key would hold the tensor's identity and its graph would read the tensor
@@ -492,7 +503,8 @@ class StageGraphs:
     def __init__(self):
         self.graphs = {}          # stage_key -> CapturedFrame
         self.slots = {}           # slot_keys entry -> static input buffer
-        self.pools = {}           # device -> the pool its graphs share
+        self.pools = {}           # (device, resident) -> the pool those
+                                  # graphs share
         self.done = {}            # device -> event after the last clones
         self.resident = set()     # storages of resident steps' outputs
         self._lock = threading.Lock()
@@ -564,8 +576,9 @@ class StageGraphs:
                    in_place=None) -> CapturedFrame:
         """Warm up on the caller's tensors, make room, capture into the
         device's shared pool on the slots (a resident step's output in
-        place), and hand the outputs' memory back to the pool, or keep it
-        for a resident step (the module's docstring)."""
+        place), and hand the outputs' memory back to the pool; a resident
+        step captures into the device's pool of resident steps and keeps
+        its outputs (the module's docstring)."""
         in_place = in_place or [False] * len(tensors)
         bound = _Bound(name, fn, args)
         while True:
@@ -584,11 +597,14 @@ class StageGraphs:
                 self.slots[k] = torch.empty(k[0], dtype=k[1], device=k[2])
         slots = iter([self.slots[k] for k in keys])
         inputs = [t if r else next(slots) for t, r in zip(tensors, in_place)]
-        if dev not in self.pools:
-            self.pools[dev] = torch.cuda.graph_pool_handle()
+        resident = is_resident(fn)
+        if (dev, resident) not in self.pools:
+            self.pools[dev, resident] = torch.cuda.graph_pool_handle()
+        if dev not in self.done:
             self.done[dev] = torch.cuda.Event()
-        graph = capture(bound, inputs, (), dev, warm, self.pools[dev])
-        if is_resident(fn):
+        graph = capture(bound, inputs, (), dev, warm,
+                        self.pools[dev, resident])
+        if resident:
             outs = {t.untyped_storage().data_ptr()
                     for t in leaves(graph.output)}
             if outs & {s.untyped_storage().data_ptr()

@@ -174,7 +174,9 @@ def test_slice_through_kernels_equals_plain_ops_and_counts_launches():
     assert {k: kernels.LAUNCHES[k] for k in kernels.ASW_KERNELS} == {
         "asw_den": 2, "asw_pass_v": cfg.r_iters, "asw_pass_h": cfg.r_iters,
         "asw_pass_win": 0, "two_min": cfg.k_iters + 1,
-        "wta_diag": cfg.k_iters + 1}
+        "wta_diag": cfg.k_iters + 1, "support_w": 8,
+        "refine_v": 2 * cfg.k_iters, "refine_win": 0,
+        "refine_h": 2 * cfg.k_iters}
     assert all(kernels.LAUNCHES[k] == 0 for k in kernels.CROSS_KERNELS)
     want = asw.asw_pipeline(left, right, cfg.replace(kernels="jnp"))
     assert kernels.LAUNCHES["two_min"] == cfg.k_iters + 1
@@ -202,6 +204,113 @@ def test_windowed_pass_kernel_bit_equal_to_plain(H, W, R, D, d0):
     assert max_ulp(got, full[:, a:b]) == 0
 
 
+# --- K9 support_w and K10 refine_pass ---------------------------------------
+
+def _maps(dev, rng, rows, W, d_max=60):
+    d = rng.integers(0, d_max + 1, (rows, W)).astype(np.float32)
+    conf = rng.uniform(0.001, 1.0, (rows, W)).astype(np.float32)
+    return torch.from_numpy(d).to(dev), torch.from_numpy(conf).to(dev)
+
+
+@pytest.mark.parametrize("R,H,W", [(16, 288, 384), (16, 375, 450), (0, 7, 9),
+                                   (16, 10, 20), (16, 40, 13), (5, 3, 130)])
+def test_strip_and_refine_kernels_bit_equal_to_plain(R, H, W):
+    """K9 on both axes with both pairs of gammas, K10 v and h (h on v's
+    outputs, and v on a strip cropped to a view of its rows) against the
+    plain ops, each launch counted once."""
+    dev = cuda_device()
+    rng = np.random.default_rng(H + W)
+    img = _pair(dev, H, W, seed=R)[0]
+    d, conf = _maps(dev, rng, H, W)
+    for gammas in ((30.91, 28.21), (10.94, 118.78)):
+        for axis in (0, 1):
+            got = _launched("support_w", tops.support_weights, img, R,
+                            *gammas, axis)
+            want = tops.support_weights(img, R, *gammas, axis, kernels="jnp")
+            assert max_ulp(got, want) == 0
+        wv, wh = tops.refinement_weights(img, R, *gammas, kernels="jnp")
+        v = _launched("refine_v", tops.refine_pass_v, wv, d, conf, R, EPS)
+        for g, w in zip(v, tops.refine_pass_v(wv, d, conf, R, EPS,
+                                              kernels="jnp")):
+            assert max_ulp(g, w) == 0
+        h = _launched("refine_h", tops.refine_pass_h, wh, *v, conf, R, EPS)
+        for g, w in zip(h, tops.refine_pass_h(wh, *v, conf, R, EPS,
+                                              kernels="jnp")):
+            assert max_ulp(g, w) == 0
+        if H > 2:
+            crop, dc, cc = wv[:, 1:-1], d[1:-1], conf[1:-1]
+            got = _launched("refine_v", tops.refine_pass_v, crop, dc, cc, R,
+                            EPS)
+            for g, w in zip(got, tops.refine_pass_v(crop.contiguous(), dc, cc,
+                                                    R, EPS, kernels="jnp")):
+                assert max_ulp(g, w) == 0
+
+
+@pytest.mark.parametrize("R,h_loc,W,row0,h_glob", [
+    (16, 144, 384, 0, 288), (16, 144, 384, 144, 288), (2, 5, 30, 7, 12),
+    (16, 10, 40, 10, 20)])
+def test_shard_strip_and_window_kernels_bit_equal_to_plain(R, h_loc, W, row0,
+                                                           h_glob):
+    """A row shard: K9 on the centre rows of its halo-padded tile and K10
+    win on its exchanged maps against the plain ops and against the whole
+    frame's strip and vertical pass on those rows."""
+    from stereo_matchin_tpu_torch.parallel import ops_tiled
+
+    dev = cuda_device()
+    rng = np.random.default_rng(row0 + h_glob)
+    frame = _pair(dev, h_glob, W, seed=h_loc)[0]
+    d, conf = _maps(dev, rng, h_glob, W)
+    rows = lambda a, b: torch.arange(a, b, device=dev).clamp(0, h_glob - 1)
+    halo, gam = max(R, 1), (10.94, 118.78)
+    tile = frame[rows(row0 - halo, row0 + h_loc + halo)].contiguous()
+    w = _launched("support_w", ops_tiled.support_weights_tiled, tile, R,
+                  *gam, row0, h_glob, halo)
+    whole = tops.support_weights(frame, R, *gam, 0, kernels="jnp")
+    assert max_ulp(w, ops_tiled.support_weights_tiled(
+        tile, R, *gam, row0, h_glob, halo, kernels="jnp")) == 0
+    assert max_ulp(w, whole[:, row0:row0 + h_loc]) == 0
+    win = rows(row0 - R, row0 + h_loc + R)
+    dw, cw = d[win].contiguous(), conf[win].contiguous()
+    got = _launched("refine_win", tops.refine_pass_v_win, w, dw, cw, EPS)
+    for g, p, f in zip(got, tops.refine_pass_v_win(w, dw, cw, EPS,
+                                                   kernels="jnp"),
+                       tops.refine_pass_v(whole, d, conf, R, EPS,
+                                          kernels="jnp")):
+        assert max_ulp(g, p) == 0
+        assert max_ulp(g, f[row0:row0 + h_loc]) == 0
+
+
+def test_refine_kernels_take_any_layout_and_refuse_bad_arguments():
+    """A strip whose rows are not contiguous, a transposed map and a
+    non-contiguous image launch the kernels on a copy and equal the plain
+    ops; a missing dv and taps that do not match the radius raise."""
+    from stereo_matchin_tpu_torch.kernels import asw_refine as kr
+
+    dev = cuda_device()
+    rng = np.random.default_rng(41)
+    img = _pair(dev, 12, 20, seed=5)[0]
+    wide = tops.support_weights(img, 2, 10.94, 118.78, 0, kernels="jnp")
+    w = wide[:, :, 2:]                       # rows 18 floats of 20 apart
+    d, conf = _maps(dev, rng, 12, 18)
+    d_t = d.t().contiguous().t()             # the same values, transposed
+    got = _launched("refine_v", kr.refine_pass, w, d_t, conf, EPS, "v")
+    for g, p in zip(got, tops.refine_pass_v(w, d, conf, 2, EPS,
+                                            kernels="jnp")):
+        assert max_ulp(g, p) == 0
+    img_t = img.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not img_t.is_contiguous()
+    got = _launched("support_w", tops.support_weights, img_t, 2, 10.94,
+                    118.78, 1)
+    assert max_ulp(got, tops.support_weights(img, 2, 10.94, 118.78, 1,
+                                             kernels="jnp")) == 0
+    with pytest.raises(ValueError):
+        kr.refine_pass(w, d, conf, EPS, "h")
+    with pytest.raises(ValueError):
+        tops.refine_pass_v(w, d, conf, 3, EPS)
+    with pytest.raises(ValueError):
+        kr.refine_pass(w.cpu(), d, conf, EPS, "v")
+
+
 @pytest.mark.parametrize("chunks", [0, 3])
 @pytest.mark.parametrize("wf", [True, False], ids=["wavefront", "halo"])
 def test_asw_band_drivers_through_kernels_equal_whole_frame(chunks, wf):
@@ -215,6 +324,10 @@ def test_asw_band_drivers_through_kernels_equal_whole_frame(chunks, wf):
     assert torch.equal(got[0], whole.disparity)
     assert torch.equal(got[1], whole.filled)
     assert (kernels.LAUNCHES["asw_pass_win"] > 0) == wf
+    bands = kernels.LAUNCHES["two_min"] // (cfg.k_iters + 1)
+    assert [kernels.LAUNCHES[k] for k in ("support_w", "refine_v",
+                                          "refine_h", "refine_win")] == [
+        8 * bands, 2 * cfg.k_iters * bands, 2 * cfg.k_iters * bands, 0]
     plain = tiled.asw_pipeline_tiled(left, right, cfg.replace(kernels="jnp"),
                                      3, wavefront=wf)
     assert torch.equal(plain[0], got[0]) and torch.equal(plain[1], got[1])
@@ -602,7 +715,9 @@ def test_asw_debug_through_kernels_equals_the_pipeline(k_iters):
         lambda: asw.asw_pipeline_debug(left, right, cfg))
     assert {n_: launches[n_] for n_ in kernels.ASW_KERNELS} == {
         "asw_den": 2, "asw_pass_v": r, "asw_pass_h": r, "asw_pass_win": 0,
-        "two_min": 1 + r + 1 + k, "wta_diag": 1 + r + 1 + k}
+        "two_min": 1 + r + 1 + k, "wta_diag": 1 + r + 1 + k,
+        "support_w": 8, "refine_v": 2 * k, "refine_win": 0,
+        "refine_h": 2 * k}
     want = asw.asw_pipeline(left, right, cfg)
     for g, w in zip(dbg.result, want):
         assert torch.equal(g, w)
@@ -673,7 +788,10 @@ def test_sharded_pipelines_on_the_card_equal_unsharded(mesh):
         if k == 0:
             want.update(asw_den=2 * frames, asw_pass_win=cfg.r_iters * frames,
                         asw_pass_h=cfg.r_iters * frames,
-                        two_min=(cfg.k_iters + 1) * frames)
+                        two_min=(cfg.k_iters + 1) * frames,
+                        support_w=8 * frames,
+                        refine_win=2 * cfg.k_iters * frames,
+                        refine_h=2 * cfg.k_iters * frames)
         else:
             want.update(cross_arms=2 * frames, sad_volume=frames,
                         oii_pass_h=frames, oii_pass_v=frames, vote_h=frames,
@@ -727,7 +845,9 @@ def test_replayed_shard_steps_equal_eager_on_one_rank(one_rank, method):
     if method == "asw":
         want.update(asw_den=2 * frames, asw_pass_win=cfg.r_iters * frames,
                     asw_pass_h=cfg.r_iters * frames,
-                    two_min=(cfg.k_iters + 1) * frames)
+                    two_min=(cfg.k_iters + 1) * frames, support_w=8 * frames,
+                    refine_win=2 * cfg.k_iters * frames,
+                    refine_h=2 * cfg.k_iters * frames)
     else:
         want.update(cross_arms=2 * frames, sad_volume=frames,
                     oii_pass_h=frames, oii_pass_v=frames, vote_h=frames,

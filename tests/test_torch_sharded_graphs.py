@@ -344,3 +344,33 @@ def test_load_copies_only_what_the_graph_does_not_read_in_place(monkeypatch):
     kept_before = kept.clone()
     frame.load([new, kept])
     assert torch.equal(slot, new) and torch.equal(kept, kept_before)
+
+
+def test_resident_steps_capture_into_a_pool_of_their_own(monkeypatch):
+    """A resident step's outputs must lie where no other stage graph ever
+    writes: it captures into the device's pool of resident steps, every
+    other step into the shared pool, whichever is captured first."""
+    events = []
+    _fake_card(monkeypatch, events)
+    handles = iter(range(100))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: ("pool", next(handles)))
+    pools = []
+    capture = graphs.capture
+
+    def recording(fn, inputs, statics, dev, warm, pool=None):
+        pools.append(pool)
+        return capture(fn, inputs, statics, dev, warm, pool)
+
+    monkeypatch.setattr(graphs, "capture", recording)
+    stages = graphs.StageGraphs()
+    x, tile = torch.rand(4, 5), torch.rand(4, 5)
+    stages.first_call("round", _round_step, (tile, x, 3.0), [tile, x], "dev")
+    w = stages.first_call("weights", _weights_step, (x, 2.0), [x], "dev")
+    stages.first_call("round", _round_step, (tile, w.output[0], 3.0),
+                      [tile, w.output[0]], "dev", [False, True])
+    stages.first_call("weights", _weights_step, (x, 5.0), [x], "dev")
+    assert pools[0] == pools[2] != pools[1] == pools[3]
+    assert stages.pools == {("dev", False): pools[0], ("dev", True): pools[1]}
+    stages.clear()
+    assert not stages.pools
