@@ -6,13 +6,15 @@ sm_90a), nvcc and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels K1-K10 from `stereo_matchin_tpu_torch/csrc`,
+It builds the CUDA kernels K1-K12 from `stereo_matchin_tpu_torch/csrc`,
 first holds the expf that K9 is compiled with against torch.exp on every
 float32 in [-80, 0] (phase 2b; any difference fails: K9 runs on every ASW
 path), holds each kernel against its plain PyTorch version on the card
 (K1/K2 and K5-K8 also at the edge shapes of their tile plans; K9/K10,
 the weight strips and refinement passes, at 288x384, 375x450, their edge
-shapes and row shards in phase 3b, at config 3 in phase 14), drives the ASW
+shapes and row shards in phase 3b, at config 3 in phase 14; K11, the WTA
+epilogue, K12, the median, and K6 on the ASW SAD cost at scale 255 in
+phase 3c, at config 3 in phase 14), drives the ASW
 and the cross-based pipelines at REFERENCE_CONFIG on the committed
 fixture pair through the kernels and through the plain ops, checks the
 launch counts of each path and its output against the JAX package's
@@ -116,7 +118,10 @@ TPU_OPS = "stereo_matchin_tpu/ops"
 # d-chunked grid kernels) and the windowed K2 (the wavefront).  K9/K10
 # replace no pallas_call: their "replaces" names the JAX function whose
 # XLA fusion they stand for; K10 win runs on the sharded path ("sharded",
-# per rank and frame at config 3 on (1, 2, 2)).
+# per rank and frame at config 3 on (1, 2, 2)).  K11 and K12 replace no
+# pallas_call either (the XLA fusions of the WTA epilogue and the median);
+# K6 and K12 run on both methods' paths ("asw+cross": launches of both
+# frames).
 KERNELS = [
     ("asw_den", f"{CSRC}/asw_aggregation.cu",
      f"{TPU_KERNELS}/asw_aggregation_dres.py:319", "asw_den", "asw"),
@@ -131,7 +136,7 @@ KERNELS = [
     ("cross_arms", f"{CSRC}/cross_oii.cu",
      f"{TPU_KERNELS}/cross_oii.py:629", "cross_arms", "cross"),
     ("sad_volume", f"{CSRC}/sad_volume.cu",
-     f"{TPU_KERNELS}/sad_volume.py:120", "sad_volume", "cross"),
+     f"{TPU_KERNELS}/sad_volume.py:120", "sad_volume", "asw+cross"),
     ("oii_pass_h", f"{CSRC}/cross_oii.cu",
      f"{TPU_KERNELS}/cross_oii.py:235; {TPU_KERNELS}/cross_oii.py:420",
      "oii_pass_h", "cross"),
@@ -157,6 +162,10 @@ KERNELS = [
      "refine_h", "asw"),
     ("refine_win", f"{CSRC}/asw_refine.cu",
      "stereo_matchin_tpu/parallel/ops_tiled.py:151", "refine_win", "sharded"),
+    ("wta_merge", f"{CSRC}/wta_gather.cu", f"{TPU_OPS}/wta_fast.py:151",
+     "wta_merge", "asw"),
+    ("median3x3", f"{CSRC}/median.cu", f"{TPU_OPS}/median.py:27",
+     "median3x3", "asw+cross"),
 ]
 # BASELINE config 3 (Middlebury 2014 full size) and the band count the JAX
 # package runs it at.
@@ -883,6 +892,276 @@ def refine_kernels_config3(left, cfg, smi):
     return out
 
 
+# K12's edge shapes, (H, W, C, offset in floats of the image's first
+# element; C = 0 for an (H, W) map): one pixel, one row, one column, 2x2,
+# odd sizes with three channels and with one, a map 4 bytes off a 16-byte
+# boundary, and a row past one block of threads.
+MEDIAN_EDGES = [(1, 1, 0, 0), (1, 7, 3, 0), (5, 1, 0, 0), (2, 2, 3, 0),
+                (37, 53, 3, 0), (37, 53, 1, 0), (37, 53, 0, 1),
+                (3, 300, 0, 0)]
+# K6 on the ASW route, (planes, d0): the whole 288x384 volume and the chunks
+# of aggr_d_chunks 2 and 3; config 3's chunks (d_max 279, aggr_d_chunks 4).
+ASW_SAD_CHUNKS = [(61, 0), (31, 0), (30, 31), (21, 42)]
+CONFIG3_SAD_CHUNKS = [(70, 0), (70, 70), (70, 140), (70, 210)]
+
+
+def compare_bits(name, got, want, stats):
+    """compare() for maps that may hold NaN (a confidence 0 / 0 where c2
+    is 0): every element's bits equal, the error taken over the finite
+    values."""
+    import torch
+
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{name}: {g.dtype}{tuple(g.shape)} vs "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        same = torch.equal(g.contiguous().view(torch.int32),
+                           w.contiguous().view(torch.int32))
+        if not same:
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            ulp = max_ulp(g[fin], w[fin]) if bool(fin.any()) else 0
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version (max ulp {ulp} over the finite "
+                                 f"values; expected the same bits)")
+    stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), 0.0)
+    print(f"  {name}: same bits")
+
+
+def penalty_maps(rng, D, H, W, half=False):
+    """A target-view penalty (sc, ct) on the card: sc in [0, 2), ct in
+    [-2, D + 2) or on the half-integers of [0, D) (the tail's two probes
+    tie)."""
+    import torch
+
+    sc = rng.uniform(0, 2, (H, W)).astype(np.float32)
+    ct = (rng.integers(0, D, (H, W)) + 0.5 if half
+          else rng.uniform(-2, D + 2, (H, W)))
+    return tuple(torch.from_numpy(a.astype(np.float32)).cuda()
+                 for a in (sc, ct))
+
+
+def wta_merge_inputs(cost, pen, big, d1_of=None):
+    """K11's inputs on one volume: K3's and K4's outputs (their plain
+    versions; d1_of replaces K3's d1 for K4) and the penalty."""
+    from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
+                                                       _two_min_plain)
+
+    c1, c2, d1 = _two_min_plain(cost, *pen, big=big)
+    if d1_of is not None:
+        d1 = d1_of(d1)
+    return (c1, c2, d1, *_diag_two_min_plain(cost, d1, *pen, big=big),
+            *pen)
+
+
+def check_wta_merge(tag, inputs, D, big, stats):
+    from stereo_matchin_tpu_torch.kernels import wta_gather as kw
+    from stereo_matchin_tpu_torch.ops.wta_fast import _wta_epilogue_plain
+
+    compare_bits(f"wta_merge {tag}", kw.wta_merge(*inputs, big, D),
+                 _wta_epilogue_plain(*inputs, big, D), stats)
+
+
+def median_library(img):
+    """The library's 3x3 median of img ((H, W) or (H, W, C)) in three
+    calls: an edge pad, an unfold into the nine taps, torch.median over
+    them (the lower median of nine is the median)."""
+    import torch
+
+    x = img.movedim(-1, 0)[None] if img.dim() == 3 else img[None, None]
+    C, H, W = x.shape[1:]
+    taps = torch.nn.functional.unfold(
+        torch.nn.functional.pad(x, (1, 1, 1, 1), mode="replicate"), 3)
+    med = taps.view(C, 9, H, W).median(dim=1).values
+    return med.movedim(0, -1) if img.dim() == 3 else med[0]
+
+
+def check_median(tag, img, stats):
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels.median import median3x3
+
+    compare(f"median3x3 {tag}", [median3x3(img)], [ops.median3x3_plain(img)],
+            stats)
+
+
+def check_fusion_kernels(pairs, cfg, stats):
+    """K11 wta_merge, K12 median3x3 and K6 on the ASW SAD cost (scale 255,
+    d0 > 0) against their plain versions on the card at the main path's
+    sizes, WTA_EDGES and MEDIAN_EDGES: same bits."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels.sad_volume import sad_volume
+
+    rng = np.random.default_rng(41)
+    big = cfg.big
+    for label, (left, right) in pairs.items():
+        H, W = left.shape[:2]
+        for D, d0 in ASW_SAD_CHUNKS:
+            compare(f"sad_volume {label} scale 255 D={D} d0={d0}",
+                    [sad_volume(left, right, D, 255.0, d0)],
+                    [ops.sad_cost_volume(left, right, D, 255.0, d0)],
+                    stats["sad_volume"])
+        D = cfg.num_disp
+        cost = ops.sad_cost_volume(left, right, D, 255.0)
+        cost[:, :3, :5] = 2e5
+        for kind, pen in (("no penalty", (None, None)),
+                          ("penalty", penalty_maps(rng, D, H, W)),
+                          ("half-integer centres",
+                           penalty_maps(rng, D, H, W, half=True))):
+            check_wta_merge(f"{label} {kind}", wta_merge_inputs(cost, pen, big),
+                            D, big, stats["wta_merge"])
+        levels = torch_round_map(left, cfg.d_max)
+        for tag, img in (("image", left), ("quantized map", levels),
+                         ("channel view", right[..., 2])):
+            check_median(f"{label} {tag} {tuple(img.shape)}", img,
+                         stats["median3x3"])
+    for D, H, W, kind, offset, d0 in WTA_EDGES:
+        cost, pen, d1_of = wta_edge_inputs(rng, D, H, W, kind, offset)
+        for kind_p, p in (("no", (None, None)), ("yes", pen),
+                          ("half", penalty_maps(rng, D, H, W, half=True))):
+            check_wta_merge(f"edge D={D} {H}x{W} d1={kind} penalty={kind_p}",
+                            wta_merge_inputs(cost, p, big, d1_of), D, big,
+                            stats["wta_merge"])
+    for H, W, C, offset in MEDIAN_EDGES:
+        shape = (H, W, C) if C else (H, W)
+        n = int(np.prod(shape))
+        flat = torch.from_numpy(rng.integers(0, 8, offset + n).astype(
+            np.float32) / np.float32(7)).cuda()
+        check_median(f"edge {shape} offset={offset}",
+                     flat[offset:].view(shape), stats["median3x3"])
+    torch.cuda.synchronize()
+
+
+def fusion_timing_cases(left, right, cfg, rng):
+    """{name: (kernel, plain, (bytes, ops), where)} of K11, K12 and K6 at
+    one frame's shapes: K11 with the target penalty (the k refinement
+    rounds' calls) on K3/K4's outputs of the SAD volume; K12 on the image
+    (the cross medians) and on the (H, W) map (the ASW median); K6 at
+    scale 255 on the last chunk of aggr_d_chunks 2."""
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels import wta_gather as kw
+    from stereo_matchin_tpu_torch.kernels.median import median3x3
+    from stereo_matchin_tpu_torch.kernels.sad_volume import sad_volume
+    from stereo_matchin_tpu_torch.ops.wta_fast import _wta_epilogue_plain
+
+    H, W = left.shape[:2]
+    D, big = cfg.num_disp, cfg.big
+    cost = ops.sad_cost_volume(left, right, D, 255.0)
+    pen = penalty_maps(rng, D, H, W)
+    c1, c2, d1 = kw.two_min(cost, big=big)
+    merge = (c1, c2, d1, *kw.wta_diag(cost, d1, *pen, big), *pen)
+    del cost
+    plane = 4 * H * W
+    levels = torch_round_map(left, cfg.d_max)
+    n2, d0 = D - D // 2, D // 2
+    at = f"{H}x{W}"
+    return {
+        "wta_merge": (lambda: kw.wta_merge(*merge, big, D),
+                      lambda: _wta_epilogue_plain(*merge, big, D),
+                      (13 * plane, 40 * H * W), f"{at}, penalty", None),
+        "median3x3": (lambda: median3x3(left),
+                      lambda: ops.median3x3_plain(left),
+                      (2 * nbytes(left), 38 * left.numel()), f"{at}x3",
+                      lambda: median_library(left)),
+        "median3x3_map": (lambda: median3x3(levels),
+                          lambda: ops.median3x3_plain(levels),
+                          (2 * nbytes(levels), 38 * levels.numel()), at,
+                          lambda: median_library(levels)),
+        "sad_volume_asw": (lambda: sad_volume(left, right, n2, 255.0, d0),
+                           lambda: ops.sad_cost_volume(left, right, n2,
+                                                       255.0, d0),
+                           (nbytes(left, right) + n2 * plane,
+                            14 * n2 * H * W),
+                           f"{at}, {n2} planes at d0 {d0}, scale 255", None),
+    }
+
+
+def torch_round_map(img, d_max):
+    """A disparity-like (H, W) map: the integers 0 .. d_max (many ties)."""
+    import torch
+
+    return torch.round(img[..., 1] * d_max).contiguous()
+
+
+def time_fusions(cases, stats, smi, reps):
+    """Times of K11, K12 and K6 at the cases' shapes, eager and replayed
+    from a graph, beside their bounds, and K12's library call (eager; it
+    must give K12's values); where `stats` is given, its K11 and K12 rows
+    (the kernels line) take these times.  Returns JSON-ready entries."""
+    import torch
+
+    out = []
+    for name, (kern, plain, work, at, library) in cases.items():
+        times, line = turns(kern, plain, reps, max(reps // 4, 1))
+        bound_ms, bound_by = bound({"bytes": work[0], "ops": work[1]})
+        entry = {"name": name, "at": at, **times, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "bytes": work[0], "library_ms": None}
+        if library is not None:
+            if not torch.equal(library(), kern()):
+                raise AssertionError(f"{name}: the library median differs "
+                                     f"from K12")
+            entry["library_ms"] = min(cuda_ms(library, reps),
+                                      cuda_ms(library, reps))
+            line += f", library {entry['library_ms']:.4f} ms"
+        print(f"  {name}: {line}  ({at}; bound {bound_ms:.4f} ms by "
+              f"{bound_by}; {smi})")
+        out.append(entry)
+        if stats is not None and name in stats:
+            stats[name].update(times, library_ms=entry["library_ms"])
+            record_work(stats, name, *work)
+    return out
+
+
+def fusion_kernels_config3(left, right, cfg, smi):
+    """K6 on config 3's ASW chunks (scale 255, d0 0 .. 210), K12 on the
+    1988x2880 image and map and K11 on 1988x2880 maps with D = 280 against
+    their plain versions (same bits), and timed.  K11's inputs are random
+    maps (the epilogue is one pass over pixels): d1 uniform in [0, D - 1],
+    so the clamped tail runs in the first D columns.  Returns one
+    JSON-ready line."""
+    import torch
+
+    from stereo_matchin_tpu_torch import ops
+    from stereo_matchin_tpu_torch.kernels.sad_volume import sad_volume
+
+    H, W = left.shape[:2]
+    D, big = cfg.num_disp, cfg.big
+    rng = np.random.default_rng(43)
+    local = {"sad_volume": {}, "wta_merge": {}, "median3x3": {}}
+    for n, d0 in CONFIG3_SAD_CHUNKS:
+        compare(f"sad_volume config 3 scale 255 D={n} d0={d0}",
+                [sad_volume(left, right, n, 255.0, d0)],
+                [ops.sad_cost_volume(left, right, n, 255.0, d0)],
+                local["sad_volume"])
+        torch.cuda.empty_cache()
+
+    def card(a):
+        return torch.from_numpy(a).cuda()
+
+    c1 = rng.integers(1, 400, (H, W)).astype(np.float32)
+    mc1 = rng.integers(1, 400, (H, W)).astype(np.float32)
+    merge = [card(c1), card(c1 + rng.integers(0, 50, (H, W)).astype(
+                 np.float32)),
+             card(rng.integers(0, D, (H, W)).astype(np.int32)), card(mc1),
+             card(mc1 + rng.integers(0, 50, (H, W)).astype(np.float32)),
+             card(rng.integers(0, D, (H, W)).astype(np.int32)),
+             card(rng.integers(1, 400, (H, W)).astype(np.float32))]
+    for tag, pen in (("no penalty", (None, None)),
+                     ("penalty", penalty_maps(rng, D, H, W)),
+                     ("half-integer centres",
+                      penalty_maps(rng, D, H, W, half=True))):
+        check_wta_merge(f"config 3 {tag}", (*merge, *pen), D, big,
+                        local["wta_merge"])
+    levels = torch_round_map(left, cfg.d_max)
+    for tag, img in (("image", left), ("quantized map", levels)):
+        check_median(f"config 3 {tag}", img, local["median3x3"])
+    cases = fusion_timing_cases(left, right, cfg, rng)
+    out = time_fusions(cases, None, smi, 5)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
 def cross_inputs(left, right, cfg, D=None, d0=0):
     """The cross path's kernel inputs, by the plain ops: median-filtered
     pair, its arms, the SAD volume of D planes from d0 and the h-pass
@@ -1518,10 +1797,10 @@ class BandPeaks:
 
 def expected_asw_launches(cfg, bands, route, kernels):
     """Launches of one ASW frame: c = disparity chunks, per chunk and band
-    K1 x2 and r levels of K2; the wavefront's first band runs the clamped
-    vertical pass, its later bands the windowed one; K3 and K4 k+1 times
-    per band; per band K9 for the 8 strips and K10 v and h 2k times (two
-    views a round)."""
+    K6 once, K1 x2 and r levels of K2; the wavefront's first band runs the
+    clamped vertical pass, its later bands the windowed one; K3, K4 and
+    K11 k+1 times per band; per band K9 for the 8 strips, K10 v and h 2k
+    times (two views a round) and K12 once."""
     D = cfg.num_disp
     chunk = -(-D // max(cfg.aggr_d_chunks, 1))
     c, r, k = -(-D // chunk), cfg.r_iters, cfg.k_iters
@@ -1529,7 +1808,8 @@ def expected_asw_launches(cfg, bands, route, kernels):
     want.update(asw_den=2 * c * bands, asw_pass_h=c * r * bands,
                 two_min=(k + 1) * bands, wta_diag=(k + 1) * bands,
                 support_w=8 * bands, refine_v=2 * k * bands,
-                refine_h=2 * k * bands)
+                refine_h=2 * k * bands, sad_volume=c * bands,
+                wta_merge=(k + 1) * bands, median3x3=bands)
     if route == "wavefront":
         want.update(asw_pass_v=c * r, asw_pass_win=c * r * (bands - 1))
     else:
@@ -1538,9 +1818,12 @@ def expected_asw_launches(cfg, bands, route, kernels):
 
 
 def expected_cross_launches(bands, kernels):
+    """Launches of one cross frame: per band K5 x2, K6-K8 once each and
+    K12 three times (both views, then the voted map)."""
     want = dict.fromkeys(kernels.LAUNCHES, 0)
     want.update(cross_arms=2 * bands, sad_volume=bands, oii_pass_h=bands,
-                oii_pass_v=bands, vote_h=bands, vote_v=bands)
+                oii_pass_v=bands, vote_h=bands, vote_v=bands,
+                median3x3=3 * bands)
     return want
 
 
@@ -1922,7 +2205,8 @@ def harness_phase(cfg, kernels, fx, cfx, res_k, left, right, warm, smi):
     dbg = asw.asw_pipeline_debug(left, right, cfg)
     torch.cuda.synchronize()
     want = expected_asw_launches(cfg, 1, "whole", kernels)
-    want.update(two_min=1 + r + 1 + k, wta_diag=1 + r + 1 + k)
+    want.update(two_min=1 + r + 1 + k, wta_diag=1 + r + 1 + k,
+                wta_merge=1 + r + 1 + k)
     check_launches("debug", dict(kernels.LAUNCHES), want)
     for f in res_k._fields:
         if not torch.equal(getattr(dbg.result, f), getattr(res_k, f)):
@@ -1970,19 +2254,21 @@ def scene_batch(dev, seed, H, W, d_max):
 
 
 def sharded_launches(method, cfg, kernels):
-    """Launches of one frame on one rank of the sharded pipelines: K1 x2,
-    the windowed K2 and K2 h r times, K3 k + 1 times at the shard's d0 (the
-    target scan is plain), K9 for the 8 strips, K10 win and h 2k times;
-    or K5 x2 and K6-K8 once each."""
+    """Launches of one frame on one rank of the sharded pipelines: K6 at
+    the shard's d0, K1 x2, the windowed K2 and K2 h r times, K3 k + 1 times
+    at the shard's d0 (the target scan and the merge are plain), K9 for
+    the 8 strips, K10 win and h 2k times and K12 once; or K5 x2, K6-K8
+    once each and K12 three times."""
     want = dict.fromkeys(kernels.LAUNCHES, 0)
     if method == "asw":
         k = cfg.k_iters
         want.update(asw_den=2, asw_pass_win=cfg.r_iters,
                     asw_pass_h=cfg.r_iters, two_min=k + 1, support_w=8,
-                    refine_win=2 * k, refine_h=2 * k)
+                    refine_win=2 * k, refine_h=2 * k, sad_volume=1,
+                    median3x3=1)
     else:
         want.update(cross_arms=2, sad_volume=1, oii_pass_h=1, oii_pass_v=1,
-                    vote_h=1, vote_v=1)
+                    vote_h=1, vote_v=1, median3x3=3)
     return want
 
 
@@ -2581,7 +2867,8 @@ def graph_phase(cfg, kernels, left, right, smi):
         "asw 288x384 plain ops": (*A, cfg.replace(kernels="jnp"),
                                   lambda: small, 0),
         "cross 288x384": (*C, cfg, lambda: small, 10),
-        "cross 288x384 taps": (*C, cfg.replace(oii_impl="taps"),
+        "cross 288x384 taps": (*C, cfg.replace(oii_impl="taps",
+                                               kernels="jnp"),
                                lambda: small, 0),
         "asw 375x450 scenes": (*A, cfg, lambda: [scene_pair(
             s, 375, 450, cfg.d_max) for s in (31, 32, 33)], 10),
@@ -2910,39 +3197,65 @@ def timed_method(harness, method, left, right, cfg, kernels, want,
     return times, ms
 
 
-def stage_device_ms(method, left, right, cfg):
+def stage_device_ms(method, left, right, cfg, attempts=3):
     """(ms per stage name, ms outside every stage) of the device time of one
     warm eager frame under torch.profiler, attributed to stages as
     scripts/profile_frame.py --stages does (utils.profiling
-    stage_device_ms)."""
+    stage_device_ms).  The profiler runs one frame as its warm-up step
+    before the frame it records.  A stage that launched n of the port's
+    kernels must hold at least n activities: where one holds fewer (its
+    launches missing from the trace, as the first stage's were in a
+    profile without the warm-up step, or given to another stage), the
+    frame is profiled again, up to `attempts` times, and then it
+    fails."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
 
+    from stereo_matchin_tpu_torch import kernels
     from stereo_matchin_tpu_torch.utils import profiling
 
-    stages = set()
+    stages, launched = set(), {}
 
     def run(name, fn, *args):
         stages.add(name)
+        before = sum(kernels.LAUNCHES.values())
         with record_function(name):
-            return fn(*args)
+            out = fn(*args)
+        launched[name] = (launched.get(name, 0)
+                          + sum(kernels.LAUNCHES.values()) - before)
+        return out
 
     frame = staged_frame(method, cfg, run)
     frame(left, right)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        frame(left, right)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        path = pathlib.Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    by_stage = profiling.stage_device_ms(events, stages)
+    for attempt in range(1, attempts + 1):
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+            path = pathlib.Path(tmp) / "trace.json"
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p: p.export_chrome_trace(
+                             str(path))) as prof:
+                for _ in range(2):
+                    launched.clear()
+                    frame(left, right)
+                    torch.cuda.synchronize()
+                    prof.step()
+            events = json.loads(path.read_text())["traceEvents"]
+        by_stage = profiling.stage_device_ms(events, stages)
+        lost = {name: (n, by_stage.get(name, (0.0, 0))[1])
+                for name, n in launched.items()
+                if n and by_stage.get(name, (0.0, 0))[1] < n}
+        if not lost:
+            break
+        print(f"  {method}: profile {attempt} of {attempts}: stages holding "
+              f"fewer activities than kernel launches (launches, "
+              f"activities): {lost}")
+    else:
+        raise AssertionError(f"{method}: {attempts} profiles lost kernel "
+                             f"launches of stages {sorted(lost)}")
     outside = by_stage.pop(None, (0.0, 0))[0]
-    if not by_stage:
-        raise AssertionError(f"{method}: the profile attributed no device "
-                             f"time to a stage")
     return {name: ms for name, (ms, _) in by_stage.items()}, outside
 
 
@@ -3062,7 +3375,8 @@ def debug_captured(label, pairs, cfg, kernels):
 
     r, k = cfg.r_iters, cfg.k_iters
     want_launches = expected_asw_launches(cfg, 1, "whole", kernels)
-    want_launches.update(two_min=1 + r + 1 + k, wta_diag=1 + r + 1 + k)
+    want_launches.update(two_min=1 + r + 1 + k, wta_diag=1 + r + 1 + k,
+                         wta_merge=1 + r + 1 + k)
     for n, (left, right) in enumerate(pairs):
         kernels.reset_launches()
         got, ms = timed(lambda: asw.asw_pipeline_debug(left, right, cfg))
@@ -3467,6 +3781,14 @@ def main() -> int:
     check_refine_kernels(pairs, cfg, stats)
     time_refine_kernels(left, cfg, stats, smi)
 
+    phase("3c. K11 wta_merge, K12 median3x3 and K6 on the ASW SAD cost "
+          "(scale 255, d0 > 0) against their plain versions on the card: "
+          "288x384, 375x450, WTA_EDGES, MEDIAN_EDGES; timed")
+    check_fusion_kernels(pairs, cfg, stats)
+    print(json.dumps({"fusions_288x384": time_fusions(
+        fusion_timing_cases(left, right, cfg, np.random.default_rng(47)),
+        stats, smi, 20), "card": smi}))
+
     phase("4. ASW slice at REFERENCE_CONFIG: kernels against plain ops")
     kernels.reset_launches()
     res_k = asw.asw_pipeline(left, right, cfg)
@@ -3543,13 +3865,11 @@ def main() -> int:
     cross_k = cross_based.cross_pipeline(left, right, cfg)
     torch.cuda.synchronize()
     cross_launches = dict(kernels.LAUNCHES)
-    taps = cfg.replace(oii_impl="taps")
+    taps = cfg.replace(oii_impl="taps", kernels="jnp")
     cross_p = cross_based.cross_pipeline_impl(left, right, taps)
     torch.cuda.synchronize()
     print(f"  launches in one frame: {cross_launches}")
-    want = dict.fromkeys(kernels.ASW_KERNELS, 0)
-    want.update(cross_arms=2, sad_volume=1, oii_pass_h=1, oii_pass_v=1,
-                vote_h=1, vote_v=1)
+    want = expected_cross_launches(1, kernels)
     if cross_launches != want:
         raise AssertionError(f"launch counts {cross_launches} != {want}")
     if dict(kernels.LAUNCHES) != cross_launches:
@@ -3633,6 +3953,9 @@ def main() -> int:
     l3, r3 = config3_pair(3)
     band_kernels_config3(l3, r3, c3, stats, smi)
     print(json.dumps({"config3_refine": refine_kernels_config3(l3, c3, smi),
+                      "card": smi}))
+    print(json.dumps({"config3_fusions": fusion_kernels_config3(l3, r3, c3,
+                                                                smi),
                       "card": smi}))
     del l3, r3
 
@@ -3731,22 +4054,28 @@ def main() -> int:
     report = {"kernels": []}
     for name, source, replaces, key, path in KERNELS:
         bound_ms, bound_by = bound(stats[name])
+        methods = [m for m, names in (("asw", kernels.ASW_KERNELS),
+                                      ("cross", kernels.CROSS_KERNELS))
+                   if key in names]
         report["kernels"].append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": path_launches[path][key],
-            # Per rank and frame on the sharded path at config 3, (1, 2, 2).
-            "sharded_launches": sharded[
-                "asw" if key in kernels.ASW_KERNELS else "cross"][key],
+            "replaces": replaces,
+            "launches": sum(path_launches[p][key] for p in path.split("+")),
+            # Per rank and frame on the sharded paths at config 3, (1, 2,
+            # 2), summed over the methods that launch it.
+            "sharded_launches": sum(sharded[m][key] for m in methods),
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": stats[name]["ms"], "device_ms": stats[name]["device_ms"],
             "plain_ms": stats[name]["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # No single PyTorch call computes any of these functions (the
-            # weights differ per tap and plane, and per pixel in K9/K10's
-            # taps, the order of the f32 sums is fixed, the arms and votes
-            # have no library form), so none is timed; PERF.md section 6
-            # gives the reason per kernel.
-            "library_ms": None})
+            # K12's: torch.median over an edge-padded unfold (three calls,
+            # phase 3c).  No single PyTorch call computes any of the
+            # others (the weights differ per tap and plane, and per pixel
+            # in K9/K10's taps, the order of the f32 sums is fixed, the
+            # arms, votes and the WTA epilogue's tail and merge have no
+            # library form), so none is timed; PERF.md section 6 gives the
+            # reason per kernel.
+            "library_ms": stats[name].get("library_ms")})
     for entry in report["kernels"]:
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']}: no launch on its path")

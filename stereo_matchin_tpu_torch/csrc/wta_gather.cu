@@ -1,5 +1,6 @@
 // Winner-take-all on Hopper: kernels K3 (reference-view two-min) and K4
-// (target-view epipolar two-min), on the (D, H, W) f32 cost volume.
+// (target-view epipolar two-min), on the (D, H, W) f32 cost volume, and
+// K11 (the WTA epilogue) on their (H, W) outputs.
 //
 // Replaces the TPU kernels of stereo_matchin_tpu/kernels/wta_gather.py:
 //   K3 two_min_f32  <- two_min_pallas  (:314, _two_min_kernel)
@@ -65,6 +66,8 @@ constexpr int kThreadsK4 = 128;
 constexpr int kUnrollK4 = 8;
 constexpr int kSparseK4 = 8;
 constexpr int kTailBlocksK4 = 16 * 132;
+// K11: threads per block, one pixel each.
+constexpr int kThreadsK11 = 256;
 
 __global__ void two_min_kernel(const float* __restrict__ cost,
                                const float* __restrict__ sc,
@@ -259,6 +262,62 @@ void launch_diag(const float* cost, const int* d1, const float* sc,
   }
 }
 
+// K11: base + sc * |ct - i|, two roundings in the plain version's order.
+__device__ __forceinline__ float tail_value(float base, float s, float c,
+                                            float i) {
+  return __fadd_rn(base, __fmul_rn(s, fabsf(__fsub_rn(c, i))));
+}
+
+// K11, one thread per pixel p = y * W + x.
+template <bool PEN>
+__global__ void wta_merge_kernel(const float* __restrict__ c1,
+                                 const float* __restrict__ c2,
+                                 const int* __restrict__ d1,
+                                 const float* __restrict__ mc1,
+                                 const float* __restrict__ mc2,
+                                 const int* __restrict__ md,
+                                 const float* __restrict__ base,
+                                 const float* __restrict__ sc,
+                                 const float* __restrict__ ct,
+                                 float* __restrict__ d_ref,
+                                 float* __restrict__ conf_ref,
+                                 float* __restrict__ d_t,
+                                 float* __restrict__ conf_t, int D, int W,
+                                 long long HW, float big) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= HW) return;
+  const int x = (int)(p % W);
+  const int dd = d1[p];
+  const float r1 = c1[p], r2 = c2[p];
+  d_ref[p] = (float)dd;
+  conf_ref[p] = __fdiv_rn(__fsub_rn(r2, r1), r2);
+  // The tail's probes i in [lo, hi] = [max(1, x + 1), min(D - 2, d1 - 1)].
+  const float lo = fmaxf(__fadd_rn((float)x, 1.0f), 1.0f);
+  const float hi = fminf(__fsub_rn((float)dd, 1.0f), (float)(D - 2));
+  const float n = __fadd_rn(__fsub_rn(hi, lo), 1.0f);
+  const float b = base[p];
+  float v1 = b, v2 = b;
+  if (PEN) {
+    const float s = sc[p], c = ct[p];
+    const float q = fminf(fmaxf(rintf(c), lo), hi);
+    v1 = tail_value(b, s, c, q);
+    const float below = __fsub_rn(q, 1.0f), above = __fadd_rn(q, 1.0f);
+    const float q_lo = below >= lo ? tail_value(b, s, c, below) : INFINITY;
+    const float q_hi = above <= hi ? tail_value(b, s, c, above) : INFINITY;
+    v2 = fminf(q_lo, q_hi);
+  }
+  const float tc1 = n >= 1.0f && v1 < big ? v1 : INFINITY;
+  const float tc2 = n >= 2.0f && v2 < big ? v2 : INFINITY;
+  const float tc1c = fminf(tc1, big);
+  const float tc2c = tc1 < big ? fminf(tc2, big) : big;
+  const float m1 = mc1[p], m2 = mc2[p];
+  const bool take = tc1c < m1;
+  const float e1 = take ? tc1c : m1;
+  const float e2 = fminf(fminf(m2, tc2c), fmaxf(m1, tc1c));
+  d_t[p] = (float)(take ? max(dd - x, 0) : md[p]);
+  conf_t[p] = __fdiv_rn(__fsub_rn(e2, e1), e2);
+}
+
 }  // namespace
 
 // cost: (D, H, W), plane d holding disparity d0 + d (the penalty's d);
@@ -305,6 +364,36 @@ extern "C" int wta_diag_f32(const float* cost, const int* d1, const float* sc,
   } else {
     launch_diag<false>(cost, d1, sc, ct, c1, c2, b, base, queue, D, H, W, big,
                        head, tail, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K11.  c1, c2, d1: K3's outputs; mc1, mc2, md, base: K4's; sc, ct: the
+// target view's penalty maps, or both null; all (H, W), d1 and md int32.
+// Writes d_ref, conf_ref, d_t, conf_t, (H, W) f32.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
+// cannot run.
+extern "C" int wta_merge_f32(const float* c1, const float* c2, const int* d1,
+                             const float* mc1, const float* mc2,
+                             const int* md, const float* base,
+                             const float* sc, const float* ct, float* d_ref,
+                             float* conf_ref, float* d_t, float* conf_t,
+                             int D, int H, int W, float big, void* stream) {
+  const long long HW = (long long)H * W;
+  if (D < 1 || HW < 0 || (sc == nullptr) != (ct == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (HW == 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((HW + kThreadsK11 - 1) / kThreadsK11);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (sc != nullptr) {
+    wta_merge_kernel<true><<<blocks, kThreadsK11, 0, s>>>(
+        c1, c2, d1, mc1, mc2, md, base, sc, ct, d_ref, conf_ref, d_t, conf_t,
+        D, W, HW, big);
+  } else {
+    wta_merge_kernel<false><<<blocks, kThreadsK11, 0, s>>>(
+        c1, c2, d1, mc1, mc2, md, base, sc, ct, d_ref, conf_ref, d_t, conf_t,
+        D, W, HW, big);
   }
   return (int)cudaGetLastError();
 }

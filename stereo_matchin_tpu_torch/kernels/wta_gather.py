@@ -1,12 +1,16 @@
-"""Wrappers of the CUDA WTA kernels K3 (`two_min`) and K4 (`wta_diag`) in
-csrc/wta_gather.cu.
+"""Wrappers of the CUDA WTA kernels K3 (`two_min`), K4 (`wta_diag`) and
+K11 (`wta_merge`) in csrc/wta_gather.cu.
 
-They replace two_min_pallas and wta_diag_pallas
+K3 and K4 replace two_min_pallas and wta_diag_pallas
 (stereo_matchin_tpu/kernels/wta_gather.py).  K4 reads the epipolar
 diagonal straight from the (D, H, W) volume, so the TPU package's sheared
-copy (build_diag) and its pads have no counterpart.  The plain versions
-are ops/wta_fast.py `_two_min_plain` / `_diag_two_min_plain`: a CPU
-tensor takes them, a CUDA tensor launches the kernel or raises.
+copy (build_diag) and its pads have no counterpart.  K11 replaces no
+pallas_call: it is the port's counterpart of the XLA fusion of the JAX
+package's WTA epilogue (stereo_matchin_tpu/ops/wta_fast.py
+`_tail_and_merge` and the two confidences), one thread per pixel.  The
+plain versions are ops/wta_fast.py `_two_min_plain` /
+`_diag_two_min_plain` / `_wta_epilogue_plain`: a CPU tensor takes them, a
+CUDA tensor launches the kernel or raises.
 
 K4 walks each pixel's diagonal in two passes: the first `diag_head(D)`
 planes of every diagonal, then the rest of the longer diagonals of warps
@@ -24,7 +28,8 @@ import torch
 
 from . import LAUNCHES, check_tensor, raise_on_error, require_cuda
 from ._build import library
-from ..ops.wta_fast import _diag_two_min_plain, _two_min_plain
+from ..ops.wta_fast import (_diag_two_min_plain, _two_min_plain,
+                            _wta_epilogue_plain)
 
 # K4: the planes of each diagonal in the first pass, and the most lanes of
 # a warp that leave the rest of theirs to the second (compiled in:
@@ -41,6 +46,8 @@ def _lib():
     lib.two_min_f32.restype = i
     lib.wta_diag_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.wta_diag_f32.restype = i
+    lib.wta_merge_f32.argtypes = [p] * 13 + [i, i, i, f, p]
+    lib.wta_merge_f32.restype = i
     return lib
 
 
@@ -132,3 +139,45 @@ def wta_diag(cost: torch.Tensor, d1: torch.Tensor,
     raise_on_error(rc, "wta_diag")
     LAUNCHES["wta_diag"] += 1
     return c1, c2, b, base
+
+
+def wta_merge(c1: torch.Tensor, c2: torch.Tensor, d1: torch.Tensor,
+              mc1: torch.Tensor, mc2: torch.Tensor, md: torch.Tensor,
+              base: torch.Tensor, sc: torch.Tensor | None,
+              ct: torch.Tensor | None, big: float, D: int):
+    """K11: the WTA epilogue from K3's (c1, c2, d1) and K4's (mc1, mc2, md,
+    base), all (H, W); sc, ct: the target view's penalty maps or None; D:
+    the volume's planes.  Returns (disp_ref, conf_ref, disp_target,
+    conf_target), (H, W) f32: d1 as f32, (c2 - c1) / c2, and the clamped
+    tail merged with K4's scan (ops/wta_fast.py _tail_and_merge)."""
+    if c1.dim() != 2:
+        raise ValueError(f"c1 must be (H, W), got {tuple(c1.shape)}")
+    if D < 1:
+        raise ValueError(f"need D >= 1, got {D}")
+    shape, dev = c1.shape, c1.device
+    f32, i32 = torch.float32, torch.int32
+    for name, t, dtype in (("c1", c1, f32), ("c2", c2, f32), ("d1", d1, i32),
+                           ("mc1", mc1, f32), ("mc2", mc2, f32),
+                           ("md", md, i32), ("base", base, f32)):
+        check_tensor(name, t, shape, dtype=dtype, device=dev)
+    if (sc is None) != (ct is None):
+        raise ValueError("penalty scale and center come together or not at all")
+    pen = () if sc is None else (sc, ct)
+    for name, t in zip(("penalty_scale", "penalty_center"), pen):
+        check_tensor(name, t, shape, device=dev)
+    if dev.type == "cpu":
+        return _wta_epilogue_plain(c1, c2, d1, mc1, mc2, md, base, sc, ct, big,
+                                   D)
+    require_cuda(c1, c2, d1, mc1, mc2, md, base, *pen)
+    H, W = shape
+    outs = [torch.empty((H, W), dtype=torch.float32, device=dev)
+            for _ in range(4)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().wta_merge_f32(
+            c1.data_ptr(), c2.data_ptr(), d1.data_ptr(), mc1.data_ptr(),
+            mc2.data_ptr(), md.data_ptr(), base.data_ptr(), _ptr(sc), _ptr(ct),
+            *(o.data_ptr() for o in outs), D, H, W, big, stream)
+    raise_on_error(rc, "wta_merge")
+    LAUNCHES["wta_merge"] += 1
+    return tuple(outs)

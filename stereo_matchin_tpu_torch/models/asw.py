@@ -10,8 +10,9 @@ they are computed once (`asw_weights`) and handed to
 `asw_pipeline_from_weights`; a test can hand in the JAX package's weights
 instead (convert.weights_from_jax).  Everything runs on the device of the
 input tensors; cfg.kernels picks the CUDA kernels or the plain ops for
-the weight strips (K9), the aggregation (K1/K2), the WTAs (K3/K4) and the
-refinement passes (K10) (see kernels.use_kernels).
+the weight strips (K9), the SAD cost (K6), the aggregation (K1/K2), the
+WTAs (K3/K4 and their epilogue K11), the refinement passes (K10) and the
+median (K12) (see kernels.use_kernels).
 
 cfg.aggr_d_chunks = n runs the SAD cost and the aggregation ladder per
 disparity chunk of ceil(D / n) planes (`_chunk_geometry`), so the (D, H, W)
@@ -145,16 +146,16 @@ def ladder_levels(left: torch.Tensor, right: torch.Tensor, w: ASWWeights,
     chunk, _ = _chunk_geometry(D, cfg.aggr_d_chunks)
     for d0 in range(0, D, chunk):
         n = min(chunk, D - d0)
-        levels = ops.asw_levels(run("aggr", ops.sad_cost_volume, left, right,
-                                    n, 255.0, d0),
+        levels = ops.asw_levels(run("aggr", ops.sad_cost, left, right, n,
+                                    255.0, d0, cfg.kernels),
                                 w.wv_l, w.wv_r, w.wh_l, w.wh_r, cfg.radius,
                                 cfg.r_iters, cfg.eps, kernels=cfg.kernels,
                                 d0=d0, run_v=partial(run, "v_aggr"),
                                 run_h=partial(run, "h_aggr"))
         for j, c in enumerate(levels):
             yield d0, j, c
-        # Free the chunk before the next chunk's SAD temporaries (the peak
-        # of a d-chunked frame, measured on the card).
+        # Free the chunk before the next chunk's cost is built (on the
+        # plain route its SAD temporaries; K6 builds none).
         del c
 
 
@@ -254,7 +255,7 @@ def asw_postaggregate(aggr: torch.Tensor, weights: ASWWeights,
     filled_img = (ops.image_from_q(filled_q, cfg.d_max) if cfg.quantize_maps
                   else ops.to_unit(filled_q, cfg.d_max))
     return ASWResult(
-        disparity=run("median", ops.median3x3, filled_img),
+        disparity=run("median", ops.median3x3, filled_img, kern),
         filled=filled_img,
         consistency_pre=red_pre,
         consistency_post=red_post,

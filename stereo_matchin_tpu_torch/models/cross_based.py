@@ -11,6 +11,8 @@ the route (kernels.oii_route): on "kernels" the arms, the SAD volume, both
 OII passes and the vote run as the CUDA kernels K5-K8;
 "taps" runs their plain versions in the same sum order, so both give the
 same bits; "prefix" sums through integral images like the reference.
+cfg.kernels routes the three medians (K12 or the plain ops,
+kernels.use_kernels).
 
 The frame is a chain of stage functions (`_median_stage` ..
 `_vote_stage`, the JAX package's names), each a plain function on tensors;
@@ -44,8 +46,8 @@ class CrossResult(NamedTuple):
     median_left: torch.Tensor   # (H, W, 3) median-filtered left (median.png)
 
 
-def _median_stage(img):
-    return ops.median3x3(img)
+def _median_stage(img, kernels: str):
+    return ops.median3x3(img, kernels)
 
 
 def _trunc_stage(img):
@@ -80,10 +82,10 @@ def _init_stage(aggr, d_max: int, quantize: bool):
 
 
 def _vote_stage(initial, arms_l, d_max: int, quantize: bool, arm_len: int,
-                impl: str):
+                impl: str, kernels: str):
     voted = ops.histogram_vote(initial, arms_l, d_max, quantize=quantize,
                                arm_len=arm_len, impl=impl)
-    return ops.median3x3(voted)
+    return ops.median3x3(voted, kernels)
 
 
 def cross_pipeline_staged(left: torch.Tensor, right: torch.Tensor,
@@ -99,8 +101,8 @@ def cross_pipeline_staged(left: torch.Tensor, right: torch.Tensor,
         raise ValueError(f"need two (H, W, 3) images, got {tuple(left.shape)} "
                          f"and {tuple(right.shape)}")
     route = oii_route(cfg.oii_impl, left)
-    ml = run("medL_solo", _median_stage, left)
-    mr = run("medR_solo", _median_stage, right)
+    ml = run("medL_solo", _median_stage, left, cfg.kernels)
+    mr = run("medR_solo", _median_stage, right, cfg.kernels)
     if cfg.median_dispatch_quirk:
         ml, mr = _trunc_stage(ml), _trunc_stage(mr)
     arms_l = run("cross_h", _arms_stage, ml, cfg.arm_len, cfg.tau,
@@ -113,7 +115,7 @@ def cross_pipeline_staged(left: torch.Tensor, right: torch.Tensor,
     initial = run("init_disp", _init_stage, aggr, cfg.d_max,
                   cfg.quantize_maps)
     final = run("final_disp", _vote_stage, initial, arms_l, cfg.d_max,
-                cfg.quantize_maps, cfg.arm_len, cfg.oii_impl)
+                cfg.quantize_maps, cfg.arm_len, cfg.oii_impl, cfg.kernels)
     if cfg.median_dispatch_quirk:
         final = _trunc_stage(final)
     return CrossResult(initial=initial, final=final, median_left=ml)

@@ -225,7 +225,8 @@ def _wave_aggregate(l, r, w, strips_in, astrip_in, cfg: StereoConfig,
         n = min(chunk, D - d0)
         den_v = asw_den(wv_l, wv_r, eps, d0, n)
         den_h = asw_den(wh_l, wh_r, eps, d0, n)
-        prev = _rows(ops.sad_cost_volume(l0, r0, n, 255.0, d0), c0, c0, c1)
+        prev = _rows(ops.sad_cost(l0, r0, n, 255.0, d0, cfg.kernels), c0, c0,
+                     c1)
         for i in range(1, r_it + 1):
             hi = lo[i] + n_real[i] + R
             if i == 1:

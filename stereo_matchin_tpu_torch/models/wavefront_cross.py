@@ -132,7 +132,7 @@ def _cross_band(l, r, strips, cfg: StereoConfig, g: _Geom):
     # Rows past the frame bottom: edge-replicated images.
     need = e + 3 * L + 3
     lp, rp = (ops.edge_pad(x, 0, max(need - g1, 0), 0) for x in (l, r))
-    ml, mr = ops.median3x3(lp), ops.median3x3(rp)
+    ml, mr = ops.median3x3(lp, cfg.kernels), ops.median3x3(rp, cfg.kernels)
 
     def arms_of(m):
         """Arms of rows [a_lo, a_hi), walked with M rows of image margin
@@ -181,7 +181,7 @@ def _cross_band(l, r, strips, cfg: StereoConfig, g: _Geom):
     # voted rows [s - 1, v_hi): the final median's reach.
     voted = (voted_fresh if first else
              torch.cat([strips.voted, voted_fresh], dim=0))
-    final = ops.median3x3(voted)
+    final = ops.median3x3(voted, cfg.kernels)
     y_v = 0 if first else s - 1
     kept = (initial[s - y_i:e - y_i], final[s - y_v:e - y_v])
     if g.last:

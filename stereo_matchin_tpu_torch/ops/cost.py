@@ -3,7 +3,8 @@ of `stereo_matchin_tpu/ops/cost.py`; reference kernels/asw_aggr.cl:41-61
 and kernels/aggregation.cl:3-22).
 
 `sad_cost_volume` is the plain version of the CUDA kernel K6
-(kernels/sad_volume.py `sad_volume`).
+(kernels/sad_volume.py `sad_volume`); `sad_cost` routes between the two
+(kernels.use_kernels), as the ASW paths call it.
 """
 
 from __future__ import annotations
@@ -39,3 +40,19 @@ def sad_cost_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int,
         term = (l[c][None] - shifted_columns(r[c], num_disp, d0)).abs()
         cost = term if cost is None else cost + term
     return cost.contiguous()
+
+
+def sad_cost(left: torch.Tensor, right: torch.Tensor, num_disp: int,
+             scale: float = 1.0, d0: int = 0,
+             kernels: str = "auto") -> torch.Tensor:
+    """sad_cost_volume(left, right, num_disp, scale, d0) through K6 on a
+    CUDA tensor where `kernels` (kernels.use_kernels) says so, else the
+    plain version; the values are the same."""
+    from ..kernels import use_kernels
+
+    if use_kernels(kernels, left):
+        from ..kernels.sad_volume import sad_volume
+
+        return sad_volume(left.contiguous(), right.contiguous(), num_disp,
+                          scale, d0)
+    return sad_cost_volume(left, right, num_disp, scale, d0)

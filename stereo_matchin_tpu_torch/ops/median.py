@@ -1,6 +1,10 @@
 """3x3 median filter (clamp-to-edge), per channel; PyTorch port of
 `stereo_matchin_tpu/ops/median.py` (reference kernels/median.cl, whose
 float4 min/max sorting network equals a per-channel 3x3 median).
+
+`median3x3` routes by its `kernels` keyword (kernels.use_kernels): "auto"
+launches the CUDA kernel K12 (kernels/median.py) on a CUDA tensor, "jnp"
+runs `median3x3_plain`, its plain version, everywhere.
 """
 
 from __future__ import annotations
@@ -18,8 +22,21 @@ _MED9_NET = [
 ]
 
 
-def median3x3(img: torch.Tensor) -> torch.Tensor:
-    """img: (H, W) or (H, W, C) float. Returns the same shape."""
+def median3x3(img: torch.Tensor, kernels: str = "auto") -> torch.Tensor:
+    """img: (H, W) or (H, W, C) float with finite values. Returns the same
+    shape, contiguous: K12 or `median3x3_plain` (kernels.use_kernels)."""
+    from ..kernels import use_kernels
+
+    if use_kernels(kernels, img):
+        from ..kernels.median import median3x3 as median_kernel
+
+        return median_kernel(img)
+    return median3x3_plain(img)
+
+
+def median3x3_plain(img: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel K12: the selection network over nine
+    slices of the edge-padded channel-first image."""
     chan = img.dim() == 3
     x = img.movedim(-1, 0) if chan else img[None]            # (C, H, W)
     H, W = x.shape[1], x.shape[2]

@@ -8,9 +8,11 @@ LARGEST b (the earlier scan step).  The clamped tail (i > x, pixels with
 x < d1) revisits the single plane b0 = d1 - x and is solved in closed
 form by `_tail_and_merge`.  Results equal the sequential scans in ops/wta.py.
 
-On a CUDA tensor the reference-view two-min and the diagonal two-min run
-as the CUDA kernels K3 and K4 (kernels/wta_gather.py); `_two_min_plain`
-and `_diag_two_min_plain` are their plain versions.  The diagonal is read
+On a CUDA tensor the reference-view two-min, the diagonal two-min and the
+epilogue (the clamped tail, the merge, both confidences and the f32
+disparities) run as the CUDA kernels K3, K4 and K11
+(kernels/wta_gather.py); `_two_min_plain`, `_diag_two_min_plain` and
+`_wta_epilogue_plain` are their plain versions.  The diagonal is read
 straight from the (D, H, W) volume: none of the TPU package's sheared
 copies are built.
 """
@@ -71,30 +73,11 @@ def _diag_two_min_plain(cost, d1, penalty_scale=None, penalty_center=None,
     return mc1, mc2, md, base
 
 
-def _target_scan_fast(cost, d1, penalty_scale=None, penalty_center=None,
-                      big: float = 1e5, kernels: str = "auto"):
-    """Exact vectorised asw_wta.cl:55-67 / asw_wta_ref.cl:40-51 target scan.
-    d1: (H, W) int32.  Returns (d_target int32, conf_target)."""
-    from ..kernels import use_kernels
-
-    D, H, W = cost.shape
-    if use_kernels(kernels, cost):
-        from ..kernels.wta_gather import wta_diag
-
-        mc1, mc2, md, base = wta_diag(cost, d1, penalty_scale,
-                                      penalty_center, big)
-    else:
-        mc1, mc2, md, base = _diag_two_min_plain(cost, d1, penalty_scale,
-                                                 penalty_center, big)
-    xs = torch.arange(W, dtype=torch.int32, device=cost.device)[None, :]
-    b0 = (d1 - xs).clamp(min=0)
-    return _tail_and_merge(d1, xs, mc1, mc2, md, base, b0, penalty_scale,
-                           penalty_center, big, D)
-
-
-def _tail_and_merge(d1, xs, mc1, mc2, md, base, b0, penalty_scale,
-                    penalty_center, big, D):
-    """Clamped-tail two-min in closed form, merged with the main scan.
+def _tail_and_merge(d1, mc1, mc2, md, base, penalty_scale, penalty_center,
+                    big, D):
+    """Clamped-tail two-min in closed form, merged with the main scan
+    (mc1, mc2, md), the tail revisiting plane b0 = max(d1 - x, 0) whose
+    cost is `base`.  Returns (d int32, conf).
 
     v(i) = base + sc*|ct - i| over the integers i in [max(1, x+1),
     min(D-2, d1-1)] is V-shaped in i, so the two smallest values sit at
@@ -104,6 +87,9 @@ def _tail_and_merge(d1, xs, mc1, mc2, md, base, b0, penalty_scale,
     scan order, so it keeps ties."""
     dt = base.dtype
     inf = torch.inf
+    xs = torch.arange(d1.shape[1], dtype=torch.int32,
+                      device=d1.device)[None, :]
+    b0 = (d1 - xs).clamp(min=0)
     lo = torch.clamp(xs.to(dt) + 1.0, min=1.0)
     hi = torch.clamp(d1.to(dt) - 1.0, max=float(D - 2))
     n = hi - lo + 1.0                                        # valid count
@@ -156,13 +142,41 @@ def _two_min(cost, pen_scale=None, pen_center=None, big: float = 1e5,
     return _two_min_plain(cost, pen_scale, pen_center, big, d0)
 
 
+def _wta_epilogue_plain(c1, c2, d1, mc1, mc2, md, base, penalty_scale,
+                        penalty_center, big, D):
+    """Plain version of kernel K11: from K3's (c1, c2, d1) and K4's (mc1,
+    mc2, md, base), the reference view's disparity as f32 and (c2 - c1) /
+    c2, and the target view's `_tail_and_merge` with its disparity as f32.
+    Returns (disp_ref, conf_ref, disp_target, conf_target)."""
+    conf_ref = (c2 - c1) / c2
+    d_t, conf_t = _tail_and_merge(d1, mc1, mc2, md, base, penalty_scale,
+                                  penalty_center, big, D)
+    return d1.to(c1.dtype), conf_ref, d_t.to(c1.dtype), conf_t
+
+
+def _wta(cost, ref_scale, ref_center, t_scale, t_center, big: float,
+         kernels: str) -> WTAResult:
+    """K3 -> K4 -> K11 on a CUDA tensor (kernels.use_kernels), their plain
+    versions elsewhere; the penalty maps of each view are optional."""
+    from ..kernels import use_kernels
+
+    c1, c2, d1 = _two_min(cost, ref_scale, ref_center, big=big,
+                          kernels=kernels)
+    if use_kernels(kernels, cost):
+        from ..kernels.wta_gather import wta_diag, wta_merge
+
+        diag = wta_diag(cost, d1, t_scale, t_center, big)
+        return WTAResult(*wta_merge(c1, c2, d1, *diag, t_scale, t_center, big,
+                                    cost.shape[0]))
+    diag = _diag_two_min_plain(cost, d1, t_scale, t_center, big)
+    return WTAResult(*_wta_epilogue_plain(c1, c2, d1, *diag, t_scale,
+                                          t_center, big, cost.shape[0]))
+
+
 def wta_fast(cost, big: float = 1e5, kernels: str = "auto") -> WTAResult:
     """Reference- and target-view WTA (asw_WTA), equal to the sequential
     scans."""
-    c1, c2, d1 = _two_min(cost, big=big, kernels=kernels)
-    conf_ref = (c2 - c1) / c2
-    d_t, conf_t = _target_scan_fast(cost, d1, big=big, kernels=kernels)
-    return WTAResult(d1.to(cost.dtype), conf_ref, d_t.to(cost.dtype), conf_t)
+    return _wta(cost, None, None, None, None, big, kernels)
 
 
 def wta_refined_fast(cost, ref_value, ref_denom, ref_value_t, ref_denom_t,
@@ -170,10 +184,5 @@ def wta_refined_fast(cost, ref_value, ref_denom, ref_value_t, ref_denom_t,
                      kernels: str = "auto") -> WTAResult:
     """asw_WTA_REF: re-WTA with the refinement prior as the soft penalty
     (penalty * den) * |ref - d|."""
-    c1, c2, d1 = _two_min(cost, penalty * ref_denom, ref_value, big=big,
-                          kernels=kernels)
-    conf_ref = (c2 - c1) / c2
-    d_t, conf_t = _target_scan_fast(
-        cost, d1, penalty_scale=penalty * ref_denom_t,
-        penalty_center=ref_value_t, big=big, kernels=kernels)
-    return WTAResult(d1.to(cost.dtype), conf_ref, d_t.to(cost.dtype), conf_t)
+    return _wta(cost, penalty * ref_denom, ref_value, penalty * ref_denom_t,
+                ref_value_t, big, kernels)

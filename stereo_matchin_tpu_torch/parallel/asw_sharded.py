@@ -20,9 +20,9 @@ round's exchanged (Dl, H_loc + 2R, W) tile (its weights cover the centre
 rows only, so nothing is cropped), K2 h at d0 and K3 `two_min` at d0, K9
 `support_w` for the strips (the vertical ones on the centre rows of the
 exchanged image tile, at the shard's frame rows) and K10 `refine_win` and
-`refine_h` for the refinement passes; elsewhere the plain versions of
-the same kernels.  The SAD cost is the plain `ops.sad_cost_volume` at
-d0, as on the unsharded path.  The maps
+`refine_h` for the refinement passes, K6 `sad_volume` for the SAD cost
+at d0 and K12 `median3x3` for the median, as on the unsharded path;
+elsewhere the plain versions of the same kernels.  The maps
 equal models.asw.asw_pipeline's bit for bit (tests pin sharded ==
 unsharded); only the schedule is distributed.
 
@@ -122,8 +122,8 @@ def _weights(left_pad, right_pad, left, right, cfg: StereoConfig, row0: int,
     d0).  Returns (wv_l, wv_r, wh_l, wh_r, den_v, den_h, cost)."""
     wv_l, wv_r, wh_l, wh_r = _strips(left_pad, right_pad, left, right, cfg,
                                      row0, h_glob, cfg.gamma_c, cfg.gamma_p)
-    cost = _pin_pad_planes(ops.sad_cost_volume(left, right, d_local, 255.0,
-                                               d0), cfg.num_disp - d0,
+    cost = _pin_pad_planes(ops.sad_cost(left, right, d_local, 255.0, d0,
+                                        cfg.kernels), cfg.num_disp - d0,
                            cfg.big)
     asw_den = _aggregators(cfg, cost)[0]
     return (wv_l, wv_r, wh_l, wh_r,
@@ -248,7 +248,7 @@ def _asw_tile(left, right, cfg: StereoConfig, row0: int, h_glob: int,
 
     filled_img = run("asw_filled", _filled, maps, cfg)
     disparity = run("asw_median", median3x3_tiled,
-                    exchange(filled_img, 1, row_group))
+                    exchange(filled_img, 1, row_group), cfg.kernels)
     return ShardedASWResult(disparity=disparity, filled=filled_img,
                             consistency_pre=red_pre, consistency_post=red_post,
                             wta_left=wta_left_img, wta_right=wta_right_img)

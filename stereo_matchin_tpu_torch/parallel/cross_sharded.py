@@ -88,7 +88,8 @@ def _cross_local(left_pad, right_pad, cfg: StereoConfig, top: int,
         cross_arms, oii_pass = ops.cross_arms, ops.oii_pass_plain
         sad_volume = ops.sad_cost_volume
     # The median reaches 1 row.
-    ml_pad, mr_pad = (_clamp_to_frame(ops.median3x3(img)[1:-1], top, h_glob)
+    ml_pad, mr_pad = (_clamp_to_frame(ops.median3x3(img, cfg.kernels)[1:-1],
+                                      top, h_glob)
                       for img in (left_pad, right_pad))
     quirk = cfg.legacy_cross_arm_quirk
     arms_l = cross_arms(ml_pad, L, cfg.tau, quirk, top, h_glob)
@@ -143,7 +144,7 @@ def _cross_tile(left, right, cfg: StereoConfig, row0: int, h_glob: int,
     voted = run("cross_vote", _cross_vote,
                 exchange_halo(initial, halo, row_group), arms_l, cfg)
     final = run("cross_median", median3x3_tiled,
-                exchange_halo(voted, 1, row_group))
+                exchange_halo(voted, 1, row_group), cfg.kernels)
     return ShardedCrossResult(initial=initial, final=final,
                               median_left=median_left)
 

@@ -227,7 +227,7 @@ def _prove_ties(left, right, cfg: StereoConfig, bad) -> int:
     """Each differing initial pixel (b, y, x) must be an argmin tie: its
     two smallest aggregated costs within 2 ulp relative."""
     for b in sorted(set(bad[:, 0])):
-        ml, mr = ops.median3x3(left[b]), ops.median3x3(right[b])
+        ml, mr = (ops.median3x3(x[b], cfg.kernels) for x in (left, right))
         quirk = cfg.legacy_cross_arm_quirk
         al = ops.cross_arms(ml, cfg.arm_len, cfg.tau, quirk)
         ar = ops.cross_arms(mr, cfg.arm_len, cfg.tau, quirk)

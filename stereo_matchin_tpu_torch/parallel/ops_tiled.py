@@ -9,7 +9,8 @@ border, not on the tile border.  Each JAX function is a port op that
 takes the shard's offsets as arguments:
 
   stack_shift_x_offset  -> ops.shifted_columns(plane, n_local, d0)
-  sad_cost_volume_shard -> ops.sad_cost_volume(l, r, n_local, scale, d0)
+  sad_cost_volume_shard -> ops.sad_cost(l, r, n_local, scale, d0, kernels)
+                           (K6 on CUDA tensors)
   support_weights_tiled -> support_weights_tiled below:
                            ops.support_weights anchored at the tile's
                            frame rows (row0, h_glob), centre rows kept
@@ -20,7 +21,7 @@ takes the shard's offsets as arguments:
   asw_hpass             -> ops.asw_pass_plain(axis=2, d0) (K2 h)
   refine_vpass_tiled    -> ops.refine_pass_v_win on the padded maps (K10
                            win on CUDA tensors)
-  median3x3_tiled       -> median3x3_tiled below
+  median3x3_tiled       -> median3x3_tiled below (K12 on CUDA tensors)
 """
 
 from __future__ import annotations
@@ -55,8 +56,10 @@ def support_weights_tiled(img_padded: torch.Tensor, radius: int,
     return w[:, halo:halo + rows].contiguous()
 
 
-def median3x3_tiled(img_padded: torch.Tensor) -> torch.Tensor:
+def median3x3_tiled(img_padded: torch.Tensor,
+                    kernels: str = "auto") -> torch.Tensor:
     """3x3 median of the centre rows of a 1-row halo-padded tile: the
-    plain median of the tile without its first and last rows (whose
-    clamped reads never reach a centre row)."""
-    return median3x3(img_padded)[1:-1].contiguous()
+    median of the tile (K12 or the plain ops, kernels.use_kernels) without
+    its first and last rows (whose clamped reads never reach a centre
+    row)."""
+    return median3x3(img_padded, kernels)[1:-1].contiguous()

@@ -16,7 +16,8 @@ The reference's observability is OpenCL event profiling feeding
     each stage; utils.graphs.replay_stage replays each from a CUDA graph);
     this one just calls fn.
   * `stage_device_ms` — the device time of a profiled frame by stage, from
-    its Chrome trace (scripts/profile_frame.py --stages).
+    its Chrome trace (scripts/profile_frame.py --stages): each activity
+    goes to its range's device-side extent.
 
 The JAX package's `utils/compilation_cache.py` has no counterpart: the
 port compiles only its CUDA sources, and `kernels/_build.py` keeps the
@@ -107,28 +108,64 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def _span_of(spans, starts, t):
+    """The name of the latest-starting span of `spans` ((start, end, name),
+    sorted by start) that holds time t (the innermost where they nest), or
+    None."""
+    i = bisect.bisect_right(starts, t) - 1
+    while i >= 0:
+        if t <= spans[i][1]:
+            return spans[i][2]
+        i -= 1
+    return None
+
+
 def stage_device_ms(events, stages) -> dict:
     """Device time by stage from a torch.profiler Chrome trace's
     `traceEvents`: each kernel, copy or set goes to the stage whose
-    `record_function` range (a user annotation named in `stages`) holds
-    the runtime call that launched it, matched by correlation id.  Returns
-    {stage: (ms, launches)}, None for what no stage launched (the glue
-    between stages).  The operator tree would miss the kernels launched
+    `record_function` range (a user annotation named in `stages`)
+    launched it.  Returns {stage: (ms, launches)}, None for what no stage
+    launched (the glue between stages).
+
+    The profiler links each launch to the annotation open around it by
+    CUPTI's correlation records, not by time, and writes each range's
+    device-side extent (cat "gpu_user_annotation": from its first
+    activity's start to its last one's end) on the device's clock.  An
+    activity goes to the innermost such extent that holds its midpoint:
+    the device runs one stream's activities in launch order, so a range's
+    extent holds its own activities and nothing launched outside it.
+    Where a trace has no device-side extents, an activity goes to the
+    range whose host-side span holds the runtime call that launched it,
+    matched by correlation id.  That fallback compares CUPTI's host
+    timestamps with the profiler's own, two clocks that can disagree by
+    more than a short stage lasts (a trace can show a kernel starting
+    before the call that launched it), so a stage's launches can land
+    outside it.  The operator tree would miss the kernels launched
     through ctypes (csrc/*.cu), which no torch operator owns."""
-    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
-                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                   and "correlation" in e.get("args", {})}
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("cat") == "user_annotation"
-                   and e.get("name") in stages)
+    device = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "gpu_user_annotation"
+                    and e.get("name") in stages)
+    if device:
+        spans, when = device, None
+    else:
+        when = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+        spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                       for e in events if e.get("cat") == "user_annotation"
+                       and e.get("name") in stages)
     starts = [sp[0] for sp in spans]
     by_stage = {}
     for e in events:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
-        t = launched_at.get(e.get("args", {}).get("correlation"))
-        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
-        name = spans[i][2] if i >= 0 and t <= spans[i][1] else None
+        if when is None:
+            # The midpoint stays clear of the rounding of the trace's
+            # times at the extent's ends, which its own activities bound.
+            t = e["ts"] + e["dur"] / 2
+        else:
+            t = when.get(e.get("args", {}).get("correlation"))
+        name = None if t is None else _span_of(spans, starts, t)
         ms, n = by_stage.get(name, (0.0, 0))
         by_stage[name] = (ms + e["dur"] / 1e3, n + 1)
     return by_stage

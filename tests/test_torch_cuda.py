@@ -176,8 +176,10 @@ def test_slice_through_kernels_equals_plain_ops_and_counts_launches():
         "asw_pass_win": 0, "two_min": cfg.k_iters + 1,
         "wta_diag": cfg.k_iters + 1, "support_w": 8,
         "refine_v": 2 * cfg.k_iters, "refine_win": 0,
-        "refine_h": 2 * cfg.k_iters}
-    assert all(kernels.LAUNCHES[k] == 0 for k in kernels.CROSS_KERNELS)
+        "refine_h": 2 * cfg.k_iters, "sad_volume": 1,
+        "wta_merge": cfg.k_iters + 1, "median3x3": 1}
+    assert all(kernels.LAUNCHES[k] == 0 for k in kernels.CROSS_KERNELS
+               if k not in kernels.ASW_KERNELS)
     want = asw.asw_pipeline(left, right, cfg.replace(kernels="jnp"))
     assert kernels.LAUNCHES["two_min"] == cfg.k_iters + 1
     for g, w in zip(got, want):
@@ -328,6 +330,10 @@ def test_asw_band_drivers_through_kernels_equal_whole_frame(chunks, wf):
     assert [kernels.LAUNCHES[k] for k in ("support_w", "refine_v",
                                           "refine_h", "refine_win")] == [
         8 * bands, 2 * cfg.k_iters * bands, 2 * cfg.k_iters * bands, 0]
+    c = -(-cfg.num_disp // -(-cfg.num_disp // max(chunks, 1)))
+    assert [kernels.LAUNCHES[k] for k in ("sad_volume", "wta_merge",
+                                          "median3x3")] == [
+        c * bands, (cfg.k_iters + 1) * bands, bands]
     plain = tiled.asw_pipeline_tiled(left, right, cfg.replace(kernels="jnp"),
                                      3, wavefront=wf)
     assert torch.equal(plain[0], got[0]) and torch.equal(plain[1], got[1])
@@ -614,10 +620,12 @@ def test_cross_slice_through_kernels_equals_plain_ops_and_counts_launches():
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] for k in kernels.CROSS_KERNELS} == {
         "cross_arms": 2, "sad_volume": 1, "oii_pass_h": 1, "oii_pass_v": 1,
-        "vote_h": 1, "vote_v": 1}
-    assert all(kernels.LAUNCHES[k] == 0 for k in kernels.ASW_KERNELS)
+        "vote_h": 1, "vote_v": 1, "median3x3": 3}
+    assert all(kernels.LAUNCHES[k] == 0 for k in kernels.ASW_KERNELS
+               if k not in kernels.CROSS_KERNELS)
     launched = dict(kernels.LAUNCHES)
-    want = cross_based.cross_pipeline(left, right, cfg.replace(oii_impl="taps"))
+    want = cross_based.cross_pipeline(left, right, cfg.replace(
+        oii_impl="taps", kernels="jnp"))
     assert kernels.LAUNCHES == launched
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -717,7 +725,8 @@ def test_asw_debug_through_kernels_equals_the_pipeline(k_iters):
         "asw_den": 2, "asw_pass_v": r, "asw_pass_h": r, "asw_pass_win": 0,
         "two_min": 1 + r + 1 + k, "wta_diag": 1 + r + 1 + k,
         "support_w": 8, "refine_v": 2 * k, "refine_win": 0,
-        "refine_h": 2 * k}
+        "refine_h": 2 * k, "sad_volume": 1, "wta_merge": 1 + r + 1 + k,
+        "median3x3": 1}
     want = asw.asw_pipeline(left, right, cfg)
     for g, w in zip(dbg.result, want):
         assert torch.equal(g, w)
@@ -791,11 +800,12 @@ def test_sharded_pipelines_on_the_card_equal_unsharded(mesh):
                         two_min=(cfg.k_iters + 1) * frames,
                         support_w=8 * frames,
                         refine_win=2 * cfg.k_iters * frames,
-                        refine_h=2 * cfg.k_iters * frames)
+                        refine_h=2 * cfg.k_iters * frames,
+                        sad_volume=frames, median3x3=frames)
         else:
             want.update(cross_arms=2 * frames, sad_volume=frames,
                         oii_pass_h=frames, oii_pass_v=frames, vote_h=frames,
-                        vote_v=frames)
+                        vote_v=frames, median3x3=3 * frames)
         assert all(r[k]["launches"] == want for r in ranks)
 
 
@@ -847,11 +857,12 @@ def test_replayed_shard_steps_equal_eager_on_one_rank(one_rank, method):
                     asw_pass_h=cfg.r_iters * frames,
                     two_min=(cfg.k_iters + 1) * frames, support_w=8 * frames,
                     refine_win=2 * cfg.k_iters * frames,
-                    refine_h=2 * cfg.k_iters * frames)
+                    refine_h=2 * cfg.k_iters * frames, sad_volume=frames,
+                    median3x3=frames)
     else:
         want.update(cross_arms=2 * frames, sad_volume=frames,
                     oii_pass_h=frames, oii_pass_v=frames, vote_h=frames,
-                    vote_v=frames)
+                    vote_v=frames, median3x3=3 * frames)
     for run in ("replay", "eager"):
         assert got[run]["frame_launches"] == [want, want], (backend, run)
     assert got["replay"]["stages"]["graphs"] > 0
@@ -1089,8 +1100,8 @@ def test_host_copy_during_capture_raises_and_does_not_fall_back(
     cfg = TINY_CONFIG
     left, right = _pair(dev, 48, 64, seed=29)
     median = cross_based._median_stage
-    monkeypatch.setattr(cross_based, "_median_stage", lambda img: median(
-        img) + torch.tensor([0.0], device=img.device))
+    monkeypatch.setattr(cross_based, "_median_stage", lambda img, kern: median(
+        img, kern) + torch.tensor([0.0], device=img.device))
     before = dict(kernels.LAUNCHES)
     with pytest.raises(RuntimeError):
         cross_based.cross_pipeline(left, right, cfg)
@@ -1309,3 +1320,109 @@ def test_replayed_band_steps_equal_eager_and_whole_frame(method, bands, wf,
     for m, k in zip(results[0], kept):
         assert torch.equal(m, k)
     assert not all(torch.equal(a, b) for a, b in zip(*results))
+
+
+# --- K11 wta_merge, K12 median3x3, K6 on the ASW SAD cost -------------------
+
+def _same_bits(got, want):
+    """Bit-equal tensors: NaN confidences (0 / 0) included."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("D,H,W,kind", [(61, 40, 300, "argmin"),
+                                        (17, 30, 20, "last"),
+                                        (33, 24, 70, "zero"),
+                                        (280, 8, 700, "random"),
+                                        (1, 5, 9, "argmin")])
+@pytest.mark.parametrize("pen", ["none", "general", "half"])
+def test_wta_merge_bit_equal_to_plain(D, H, W, kind, pen):
+    from stereo_matchin_tpu_torch.ops.wta_fast import _wta_epilogue_plain
+
+    dev = cuda_device()
+    rng = np.random.default_rng(D + H + W)
+    cost = torch.from_numpy(rng.integers(0, 30, (D, H, W)).astype(
+        np.float32)).to(dev)
+    cost[:, :2, :3] = BIG
+    cost[: D // 2, 2:4] = 2 * BIG
+    maps = (None, None)
+    if pen != "none":
+        ct = (rng.integers(0, D, (H, W)) + 0.5 if pen == "half"
+              else rng.uniform(-2, D + 2, (H, W)))
+        maps = tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
+                     for a in (rng.uniform(0, 2, (H, W)), ct))
+    c1, c2, d1 = _two_min_plain(cost, *maps, big=BIG)
+    d1 = {"argmin": d1, "zero": torch.zeros_like(d1),
+          "last": torch.full_like(d1, D - 1),
+          "random": torch.from_numpy(rng.integers(0, D, (H, W)).astype(
+              np.int32)).to(dev)}[kind]
+    inputs = (c1, c2, d1, *_diag_two_min_plain(cost, d1, *maps, big=BIG),
+              *maps)
+    before = kernels.LAUNCHES["wta_merge"]
+    _same_bits(kw.wta_merge(*inputs, BIG, D),
+               _wta_epilogue_plain(*inputs, BIG, D))
+    assert kernels.LAUNCHES["wta_merge"] == before + 1
+
+
+@pytest.mark.parametrize("refined", [False, True])
+def test_wta_routes_launch_k3_k4_k11_and_equal_the_plain_ops(refined):
+    dev = cuda_device()
+    rng = np.random.default_rng(5)
+    D, H, W = 61, 48, 96
+    cost = torch.from_numpy(rng.integers(0, 30, (D, H, W)).astype(
+        np.float32)).to(dev)
+    args = ()
+    if refined:
+        args = (*(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            rng.uniform(0, D, (H, W)), rng.uniform(0, 2, (H, W)),
+            rng.integers(0, D, (H, W)) + 0.5, rng.uniform(0, 2, (H, W)))),
+            0.05)
+    fn = tops.wta_refined_fast if refined else tops.wta_fast
+    kernels.reset_launches()
+    got = fn(cost, *args, big=BIG)
+    torch.cuda.synchronize()
+    assert [kernels.LAUNCHES[k] for k in ("two_min", "wta_diag",
+                                          "wta_merge")] == [1, 1, 1]
+    _same_bits(got, fn(cost, *args, big=BIG, kernels="jnp"))
+    assert kernels.LAUNCHES["wta_merge"] == 1
+
+
+@pytest.mark.parametrize("shape,offset", [((288, 384, 3), 0), ((288, 384), 0),
+                                          ((375, 450, 3), 0), ((37, 53), 1),
+                                          ((1, 1), 0), ((5, 1, 3), 0),
+                                          ((3, 300, 1), 0)])
+def test_median3x3_bit_equal_to_plain(shape, offset):
+    from stereo_matchin_tpu_torch.kernels.median import median3x3
+
+    dev = cuda_device()
+    rng = np.random.default_rng(sum(shape))
+    count = int(np.prod(shape))
+    flat = torch.from_numpy(rng.integers(0, 8, offset + count).astype(
+        np.float32) / np.float32(7)).to(dev)
+    img = flat[offset:].view(shape)
+    before = kernels.LAUNCHES["median3x3"]
+    got = median3x3(img)
+    assert got.is_contiguous() and got.shape == img.shape
+    assert torch.equal(got, tops.median3x3_plain(img))
+    assert torch.equal(tops.median3x3(img), got)
+    assert torch.equal(tops.median3x3(img[..., 0] if img.dim() == 3 else img,
+                                      kernels="pallas"),
+                       tops.median3x3_plain(img[..., 0] if img.dim() == 3
+                                            else img))
+    assert kernels.LAUNCHES["median3x3"] == before + 3
+
+
+@pytest.mark.parametrize("H,W,D,d0", [(288, 384, 61, 0), (288, 384, 30, 31),
+                                      (375, 450, 21, 42), (40, 600, 70, 210)])
+def test_sad_volume_at_scale_255_bit_equal_to_plain(H, W, D, d0):
+    dev = cuda_device()
+    left, right = _pair(dev, H, W, seed=D + d0)
+    before = kernels.LAUNCHES["sad_volume"]
+    got = tops.sad_cost(left, right, D, 255.0, d0)
+    assert kernels.LAUNCHES["sad_volume"] == before + 1
+    assert torch.equal(got, tops.sad_cost_volume(left, right, D, 255.0, d0))
+    assert torch.equal(tops.sad_cost(left, right, D, 255.0, d0, "jnp"), got)
+    assert kernels.LAUNCHES["sad_volume"] == before + 1

@@ -24,8 +24,8 @@ from stereo_matchin_tpu_torch import kernels
 from stereo_matchin_tpu_torch import ops as tops
 from stereo_matchin_tpu_torch.kernels.wta_gather import two_min, wta_diag
 from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
-                                                   _target_scan_fast,
-                                                   _two_min_plain)
+                                                   _two_min_plain,
+                                                   _wta_epilogue_plain)
 
 from .torch_support import n, t
 
@@ -124,15 +124,16 @@ def test_vectorised_target_scan_equals_sequential_oracle(with_penalty):
     rng = np.random.default_rng(23)
     D, H, W = 17, 9, 40
     cost = t(_volume(rng, D, H, W))
-    d1 = two_min(cost)[2]
+    c1, c2, d1 = two_min(cost)
     sc = ct = None
     if with_penalty:
         sc = t(rng.random((H, W), dtype=np.float32))
         ct = t((rng.integers(0, 2 * D, (H, W)) / np.float32(2)).astype(
             np.float32))
     want = tops.epipolar_target_scan(cost, d1, sc, ct, big=BIG)
-    d, conf = _target_scan_fast(cost, d1, sc, ct, big=BIG)
-    np.testing.assert_array_equal(n(d).astype(np.float32), n(want[0]))
+    d, conf = _wta_epilogue_plain(c1, c2, d1, *_diag_two_min_plain(
+        cost, d1, sc, ct, BIG), sc, ct, BIG, D)[2:]
+    np.testing.assert_array_equal(n(d), n(want[0]))
     np.testing.assert_array_equal(n(conf), n(want[1]))
 
 
