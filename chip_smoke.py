@@ -6,7 +6,7 @@ sm_90a), nvcc and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels K1-K12 from `stereo_matchin_tpu_torch/csrc`,
+It builds the CUDA kernels K1-K14 from `stereo_matchin_tpu_torch/csrc`,
 first holds the expf that K9 is compiled with against torch.exp on every
 float32 in [-80, 0] (phase 2b; any difference fails: K9 runs on every ASW
 path), holds each kernel against its plain PyTorch version on the card
@@ -14,7 +14,9 @@ path), holds each kernel against its plain PyTorch version on the card
 the weight strips and refinement passes, at 288x384, 375x450, their edge
 shapes and row shards in phase 3b, at config 3 in phase 14; K11, the WTA
 epilogue, K12, the median, and K6 on the ASW SAD cost at scale 255 in
-phase 3c, at config 3 in phase 14), drives the ASW
+phase 3c, at config 3 in phase 14; K13 and K14, the sharded WTA's epipolar
+segment and shard merges, in phase 3d at SHARD_WTA_EDGES, at config 3's
+shard in phase 14), drives the ASW
 and the cross-based pipelines at REFERENCE_CONFIG on the committed
 fixture pair through the kernels and through the plain ops, checks the
 launch counts of each path and its output against the JAX package's
@@ -40,8 +42,9 @@ replayed from CUDA graphs (the default) and then eagerly
 (`utils.call_stage`): both methods bit-equal to the unsharded frames of
 phases 4, 8, 15 and 16, every rank's launches asserted in every frame,
 per rank the frame ms, peak memory, step graphs, pool and slots, and the
-config-3 shard's epipolar scan eager against one replayed step; and once
-more through one NCCL rank, replayed and eager.  Phase 20 runs `run
+config-3 shard's plain epipolar scan eager and as one replayed step in
+turns with K13 eager and replayed; and once more through one NCCL rank,
+replayed and eager.  Phase 20 runs `run
 --method both` and `run --method cross` over 8 seeded 375x450 scenes,
 decoding ahead (io/loader.py): every file byte-equal to those of `run`'s
 own per-pair work on the pairs decoded inline and the launches asserted,
@@ -121,7 +124,9 @@ TPU_OPS = "stereo_matchin_tpu/ops"
 # per rank and frame at config 3 on (1, 2, 2)).  K11 and K12 replace no
 # pallas_call either (the XLA fusions of the WTA epilogue and the median);
 # K6 and K12 run on both methods' paths ("asw+cross": launches of both
-# frames).
+# frames).  K13 and K14 replace no pallas_call either (the XLA fusions of
+# the sharded WTA's epipolar segment and its shard merges) and run on the
+# sharded path only.
 KERNELS = [
     ("asw_den", f"{CSRC}/asw_aggregation.cu",
      f"{TPU_KERNELS}/asw_aggregation_dres.py:319", "asw_den", "asw"),
@@ -166,6 +171,12 @@ KERNELS = [
      "wta_merge", "asw"),
     ("median3x3", f"{CSRC}/median.cu", f"{TPU_OPS}/median.py:27",
      "median3x3", "asw+cross"),
+    ("epipolar_segment", f"{CSRC}/wta_shard.cu",
+     "stereo_matchin_tpu/parallel/wta_sharded.py:68", "epipolar_segment",
+     "sharded"),
+    ("shard_merge", f"{CSRC}/wta_shard.cu",
+     "stereo_matchin_tpu/parallel/wta_sharded.py:38", "shard_merge",
+     "sharded"),
 ]
 # BASELINE config 3 (Middlebury 2014 full size) and the band count the JAX
 # package runs it at.
@@ -1157,6 +1168,224 @@ def fusion_kernels_config3(left, right, cfg, smi):
         check_median(f"config 3 {tag}", img, local["median3x3"])
     cases = fusion_timing_cases(left, right, cfg, rng)
     out = time_fusions(cases, None, smi, 5)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+# K13/K14 at the sharded path's shapes at 288x384 REFERENCE_CONFIG on
+# (1, 2, 2) besides tests/torch_support.py SHARD_WTA_EDGES: (D, shards, H,
+# W, d1), 61 planes padded to 62 over 2 shards of 144 of the 288 rows.
+SHARD_WTA_288 = (61, 2, 144, 384, "argmin")
+
+
+def wta_sharded_module():
+    """parallel/wta_sharded.py (the package exports a function of its
+    name)."""
+    return importlib.import_module(
+        "stereo_matchin_tpu_torch.parallel.wta_sharded")
+
+
+def check_shard_wta(tag, vols, dl, d_pad, maps, d1_of, big, penalty, stats):
+    """One frame of the sharded WTA's steps on the card, every shard's
+    volume in `vols`: K14's reference merge of the shards' K3 summaries
+    (plain), K13 on every shard from d1_of(the merged reference's d), and
+    K14's target merge of the plain segments, each against its plain
+    version (kernels="jnp"), the same bits (the d planes' int32 bits and
+    the NaN confidences included).  maps: the WTA_REF's (ref_value,
+    ref_denom, ref_value_t, ref_denom_t), or None for the WTA."""
+    import torch
+
+    twta = wta_sharded_module()
+    ref_pen = (maps[1], maps[0], penalty) if maps else (None,) * 3
+    tgt_pen = (maps[3], maps[2], penalty) if maps else (None,) * 3
+    g = torch.stack([twta.local_two_min(v, *ref_pen, k * dl, big, "jnp")
+                     for k, v in enumerate(vols)])
+    ref = twta.merge_reference_step(g, big, "jnp")
+    compare_bits(f"shard_merge reference {tag}",
+                 twta.merge_reference_step(g, big, "pallas"), ref,
+                 stats["shard_merge"])
+    d1 = d1_of(ref.d)
+    segs = []
+    for k, v in enumerate(vols):
+        seg = twta.epipolar_segment(v, d1, k * dl, dl, d_pad, *tgt_pen, big,
+                                    "jnp")
+        compare_bits(f"epipolar_segment {tag} shard {k}",
+                     [twta.epipolar_segment(v, d1, k * dl, dl, d_pad,
+                                            *tgt_pen, big, "pallas")],
+                     [seg], stats["epipolar_segment"])
+        segs.append(seg)
+    g_t = torch.stack(segs)
+    compare_bits(f"shard_merge target {tag}",
+                 twta.merge_target_step(g_t, ref.c1, ref.c2, d1, big,
+                                        "pallas"),
+                 twta.merge_target_step(g_t, ref.c1, ref.c2, d1, big, "jnp"),
+                 stats["shard_merge"])
+
+
+def check_shard_wta_kernels(cfg, stats):
+    """K13 and K14 against their plain versions on the card at
+    tests/torch_support.py SHARD_WTA_EDGES and at a 288x384 (1, 2, 2)
+    shard (SHARD_WTA_288), with and without the WTA_REF penalty: the same
+    bits."""
+    import torch
+
+    from tests.torch_support import SHARD_WTA_EDGES, shard_wta_inputs
+
+    rng = np.random.default_rng(53)
+    big = cfg.big
+    cases = dict(SHARD_WTA_EDGES, **{"288x384 shard": SHARD_WTA_288})
+    for case, (D, shards, H, W, kind) in cases.items():
+        cost, maps, rand = shard_wta_inputs(rng, D, shards, H, W, big)
+        d_pad = cost.shape[0]
+        dl = d_pad // shards
+        vols = [torch.from_numpy(cost[k * dl:(k + 1) * dl]).cuda()
+                for k in range(shards)]
+        maps = tuple(torch.from_numpy(m).cuda() for m in maps)
+        rand = torch.from_numpy(rand).cuda()
+        d1_of = {"argmin": lambda d: d, "zero": torch.zeros_like,
+                 "last": lambda d: torch.full_like(d, D - 1),
+                 "random": lambda d: rand}[kind]
+        for with_pen in (False, True):
+            check_shard_wta(f"{case} D={D}/{shards} {H}x{W} d1={kind} "
+                            f"penalty={with_pen}", vols, dl, d_pad,
+                            maps if with_pen else None, d1_of, big,
+                            cfg.penalty, stats)
+    torch.cuda.synchronize()
+
+
+def segment_walk(d1, d0, n_local, total_disp):
+    """(loads, steps) of K13 on one shard for this d1: the unclamped steps
+    each read one float, a clamped tail reads its base once and walks its
+    steps without a load (csrc/wta_shard.cu)."""
+    import torch
+
+    xs = torch.arange(d1.shape[1], device=d1.device)[None, :]
+    imax = d1.clamp(max=total_disp - 1)
+    lo = (d1 - d0 - n_local + 1).clamp(min=0)
+    hi = torch.minimum(torch.minimum(xs, d1 - d0), imax - 1)
+    main = (hi - lo + 1).clamp(min=0).long()
+    btl = d1 - xs - d0
+    tail = (xs + 1 < imax) & (btl >= 0) & (btl < n_local)
+    steps = torch.where(tail, imax - xs - 1, 0).long()
+    return int(main.sum() + tail.sum()), int(main.sum() + steps.sum())
+
+
+def segment_sectors(d1, d0, n_local, total_disp):
+    """The 32-byte sectors (8 floats of a volume row) of the shard's planes
+    that K13's loads touch: the unclamped steps' columns x - i of plane
+    d1 - i - d0 and the tails' column 0."""
+    import torch
+
+    H, W = d1.shape
+    ys, xs = torch.meshgrid(torch.arange(H, device=d1.device),
+                            torch.arange(W, device=d1.device), indexing="ij")
+    imax = d1.clamp(max=total_disp - 1)
+    lo = (d1 - d0 - n_local + 1).clamp(min=0)
+    hi = torch.minimum(torch.minimum(xs, d1 - d0), imax - 1)
+    btl = d1 - xs - d0
+    tail = (xs + 1 < imax) & (btl >= 0) & (btl < n_local)
+    total = 0
+    for k in range(n_local):
+        i = d1 - d0 - k
+        m = (i >= lo) & (i <= hi)
+        keys = torch.cat([ys[m] * W + (xs - i)[m] // 8 * 8,
+                          ys[tail & (btl == k)] * W])
+        total += torch.unique(keys).numel()
+    return total
+
+
+def shard_wta_config3(cfg, stats, smi):
+    """K13 and K14 at a config-3 (1, 2, 2) shard's shapes (2 shards of 140
+    of the 280 planes, 994 of the 1988 rows x 2880), integer costs in
+    [0, 400), d1 uniform in [0, D - 1] (as phase 19 times the scan alone):
+    both shards and both merges against their plain versions (the same
+    bits, with and without the penalty), then timed in turns with the
+    target penalty (the WTA_REF's, 6 of a frame's 7 scans) beside their
+    bounds from this run's inputs: K13 on each shard (its loads, 4 bytes
+    each, and the 32-byte sectors they touch), K14 in both modes.  The
+    kernels line takes K13 on shard 0 (the longer walks) and K14's target
+    mode.  Returns one JSON-ready line."""
+    import torch
+
+    from stereo_matchin_tpu_torch.kernels import wta_shard as ks
+
+    twta = wta_sharded_module()
+    H, W = CONFIG3_HW[0] // 2, CONFIG3_HW[1]
+    D, big = cfg.num_disp, cfg.big
+    dl = D // 2
+    gen = torch.Generator(device="cuda").manual_seed(59)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    def ints(hi):
+        return torch.randint(0, hi, (H, W), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    vols = [rand(dl, H, W).mul_(400).floor_() for _ in range(2)]
+    maps = (ints(D) + 0.5 * ints(2), rand(H, W) * 3,
+            ints(D) + 0.5 * ints(2), rand(H, W) * 3)
+    d1 = ints(D)
+    local = {"epipolar_segment": {}, "shard_merge": {}}
+    for with_pen in (False, True):
+        check_shard_wta(f"config 3 shard penalty={with_pen}", vols, dl, D,
+                        maps if with_pen else None, lambda d: d1, big,
+                        cfg.penalty, local)
+    sc, ct = cfg.penalty * maps[3], maps[2]
+    g = torch.stack([twta.local_two_min(v, maps[1], maps[0], cfg.penalty,
+                                        k * dl, big, "jnp")
+                     for k, v in enumerate(vols)])
+    ref = twta.merge_reference_gathered(g, big)
+    g_t = torch.stack([ks.epipolar_segment(v, d1, k * dl, dl, D, sc, ct, big)
+                       for k, v in enumerate(vols)])
+    HW = H * W
+    out = []
+    cases = {}
+    for k, v in enumerate(vols):
+        loads, steps = segment_walk(d1, k * dl, dl, D)
+        cases[f"epipolar_segment shard {k}"] = (
+            lambda v=v, k=k: ks.epipolar_segment(v, d1, k * dl, dl, D, sc,
+                                                 ct, big),
+            lambda v=v, k=k: twta.stack_two_min(twta.epipolar_partial(
+                v, d1, k * dl, dl, D, sc, ct, big)),
+            (4 * loads + 24 * HW, 6 * steps), 5, 1,
+            {"loads": loads, "steps": steps,
+             "sectors": segment_sectors(d1, k * dl, dl, D)})
+    cases["shard_merge target"] = (
+        lambda: ks.shard_merge_target(g_t, ref.c1, ref.c2, ref.d, big),
+        lambda: twta.wta_result(ref.c1, ref.c2, ref.d,
+                                *twta.merge_target_gathered(g_t, ref.d, big)),
+        (nbytes(g_t, ref.c1, ref.c2, ref.d) + 16 * HW, 16 * HW), 20, 5, {})
+    cases["shard_merge reference"] = (
+        lambda: ks.shard_merge_reference(g, big),
+        lambda: twta.merge_reference_gathered(g, big),
+        (nbytes(g) + 12 * HW, 8 * HW), 20, 5, {})
+    for name, (kern, plain, work, kreps, preps, extra) in cases.items():
+        times, line = turns(kern, plain, kreps, preps)
+        bound_ms, bound_by = bound({"bytes": work[0], "ops": work[1]})
+        entry = {"name": name, **times, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "bytes": work[0], "ops": work[1],
+                 **extra}
+        note = ""
+        if "sectors" in extra:
+            entry["sector_bound_ms"] = (extra["sectors"] * 32
+                                        / HBM_BYTES_PER_S * 1e3)
+            note = (f"; {extra['loads']} loads, {extra['steps']} steps, "
+                    f"{extra['sectors']} 32-byte sectors: "
+                    f"{entry['sector_bound_ms']:.4f} ms")
+        print(f"  {name}: {line}  ({dl} planes of {H}x{W}, D={D}; bound "
+              f"{bound_ms:.4f} ms by {bound_by}{note}; {smi})")
+        out.append(entry)
+        key = {"epipolar_segment shard 0": "epipolar_segment",
+               "shard_merge target": "shard_merge"}.get(name)
+        if key:
+            stats[key].update(times)
+            record_work(stats, key, *work)
+    for key in local:
+        stats[key]["max_abs_err"] = max(stats[key].get("max_abs_err", 0.0),
+                                        local[key]["max_abs_err"])
+    del vols, g, g_t, ref
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
@@ -2255,17 +2484,20 @@ def scene_batch(dev, seed, H, W, d_max):
 
 def sharded_launches(method, cfg, kernels):
     """Launches of one frame on one rank of the sharded pipelines: K6 at
-    the shard's d0, K1 x2, the windowed K2 and K2 h r times, K3 k + 1 times
-    at the shard's d0 (the target scan and the merge are plain), K9 for
-    the 8 strips, K10 win and h 2k times and K12 once; or K5 x2, K6-K8
-    once each and K12 three times."""
+    the shard's d0, K1 x2, the windowed K2 and K2 h r times, K3 (at the
+    shard's d0) and K13 (the shard's target-scan segment) k + 1 times, K14
+    twice as often (the reference and the target merge of each WTA; no
+    plain merge or WTA-map chain is left), K9 for the 8 strips, K10 win
+    and h 2k times and K12 once; or K5 x2, K6-K8 once each and K12 three
+    times."""
     want = dict.fromkeys(kernels.LAUNCHES, 0)
     if method == "asw":
         k = cfg.k_iters
         want.update(asw_den=2, asw_pass_win=cfg.r_iters,
                     asw_pass_h=cfg.r_iters, two_min=k + 1, support_w=8,
                     refine_win=2 * k, refine_h=2 * k, sad_volume=1,
-                    median3x3=1)
+                    median3x3=1, epipolar_segment=k + 1,
+                    shard_merge=2 * (k + 1))
     else:
         want.update(cross_arms=2, sad_volume=1, oii_pass_h=1, oii_pass_v=1,
                     vote_h=1, vote_v=1, median3x3=3)
@@ -2333,18 +2565,20 @@ def check_sharded(ranks, cases, refs, kernels, smi):
 
 
 def epipolar_scan_time(c3_kw, smi):
-    """The plain target scan of one config-3 (1, 2, 2) shard (140 planes of
-    994 x 2880, parallel/wta_sharded.py epipolar_partial, 279 steps, with
-    the penalty), alone on the card in this process, eagerly and as the
-    sharded path's "wta_epipolar" step replayed from a CUDA graph, in turns
-    (eager, replayed, replayed, eager), bit-equal: a sharded ASW frame runs
-    it k + 1 = 7 times a rank.  Returns the ms of each."""
+    """The target scan of one config-3 (1, 2, 2) shard (140 planes of 994 x
+    2880 at d0 140, 279 steps, with the penalty), alone on the card in
+    this process: the plain version (parallel/wta_sharded.py
+    epipolar_partial) eagerly and as the sharded path's "wta_epipolar"
+    step replayed from a CUDA graph (kernels="jnp"), and K13 (the same step
+    on the default route) eagerly and replayed, in turns (plain eager,
+    plain replayed, K13 replayed, K13 eager, then back), all bit-equal: a
+    sharded ASW frame runs it k + 1 = 7 times a rank.  Returns the ms of
+    each."""
     import torch
 
-    from stereo_matchin_tpu_torch.parallel.wta_sharded import (
-        epipolar_partial, epipolar_segment, stack_two_min)
     from stereo_matchin_tpu_torch.utils import clear_caches, replay_stage
 
+    twta = wta_sharded_module()
     H, W = CONFIG3_HW
     D = c3_kw["d_max"] + 1
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -2353,22 +2587,32 @@ def epipolar_scan_time(c3_kw, smi):
                        dtype=torch.int32)
     sc = torch.rand((H // 2, W), generator=gen, device="cuda")
     ct = torch.rand((H // 2, W), generator=gen, device="cuda") * D
-    scan = lambda: stack_two_min(
-        epipolar_partial(cost, d1, D // 2, D // 2, D, sc, ct))
-    step = lambda: replay_stage("wta_epipolar", epipolar_segment, cost, d1,
-                                D // 2, D // 2, D, sc, ct, None, 1e5)
-    if not torch.equal(scan(), step()):
-        raise AssertionError("the replayed epipolar step differs from the "
-                             "eager scan")
-    got = {"eager_ms": [], "replayed_ms": []}
-    for key in ("eager_ms", "replayed_ms", "replayed_ms", "eager_ms"):
-        got[key].append(round(timed(scan if key == "eager_ms" else step)[1],
-                              3))
+    args = (cost, d1, D // 2, D // 2, D, sc, ct, None, 1e5)
+    runs = {
+        "eager_ms": lambda: twta.stack_two_min(twta.epipolar_partial(
+            cost, d1, D // 2, D // 2, D, sc, ct)),
+        "replayed_ms": lambda: replay_stage(
+            "wta_epipolar", twta.epipolar_segment, *args, "jnp"),
+        "k13_replayed_ms": lambda: replay_stage(
+            "wta_epipolar", twta.epipolar_segment, *args, "auto"),
+        "k13_eager_ms": lambda: twta.epipolar_segment(*args, "auto")}
+    want = runs["eager_ms"]().view(torch.int32)
+    for key, fn in runs.items():
+        if not torch.equal(fn().view(torch.int32), want):
+            raise AssertionError(f"epipolar scan {key}: differs from the "
+                                 f"eager plain scan")
+    got = {key: [] for key in runs}
+    order = list(runs)
+    for key in order + order[::-1]:                     # in turns
+        got[key].append(round(timed(runs[key])[1], 3))
     clear_caches()
-    print(f"  config-3 shard's plain epipolar scan ({D // 2} planes of "
-          f"{H // 2}x{W}, {D - 1} steps, with the penalty), alone on the "
-          f"card, 7 a frame: eager {got['eager_ms']} ms, one replayed step "
-          f"{got['replayed_ms']} ms (bit-equal); {smi}")
+    print(f"  config-3 shard's epipolar scan ({D // 2} planes of "
+          f"{H // 2}x{W} at d0 {D // 2}, {D - 1} steps, with the penalty), "
+          f"alone on the card, 7 a frame: plain eager {got['eager_ms']} ms, "
+          f"plain as one replayed step {got['replayed_ms']} ms, K13 "
+          f"replayed {got['k13_replayed_ms']} ms, K13 eager "
+          f"{got['k13_eager_ms']} ms (host clock around each synchronized "
+          f"call; all bit-equal); {smi}")
     return got
 
 
@@ -3789,6 +4033,11 @@ def main() -> int:
         fusion_timing_cases(left, right, cfg, np.random.default_rng(47)),
         stats, smi, 20), "card": smi}))
 
+    phase("3d. K13 epipolar_segment and K14 shard_merge (the sharded WTA) "
+          "against their plain versions on the card: SHARD_WTA_EDGES and a "
+          "288x384 (1,2,2) shard, with and without the penalty")
+    check_shard_wta_kernels(cfg, stats)
+
     phase("4. ASW slice at REFERENCE_CONFIG: kernels against plain ops")
     kernels.reset_launches()
     res_k = asw.asw_pipeline(left, right, cfg)
@@ -3957,6 +4206,8 @@ def main() -> int:
     print(json.dumps({"config3_fusions": fusion_kernels_config3(l3, r3, c3,
                                                                 smi),
                       "card": smi}))
+    print(json.dumps({"config3_shard_wta": shard_wta_config3(c3, stats, smi),
+                      "card": smi}))
     del l3, r3
 
     phase(f"15. config 3 ASW through the kernels: whole frame, wavefront and "
@@ -4072,9 +4323,10 @@ def main() -> int:
             # phase 3c).  No single PyTorch call computes any of the
             # others (the weights differ per tap and plane, and per pixel
             # in K9/K10's taps, the order of the f32 sums is fixed, the
-            # arms, votes and the WTA epilogue's tail and merge have no
-            # library form), so none is timed; PERF.md section 6 gives the
-            # reason per kernel.
+            # arms, votes, the WTA epilogue's tail and merge and the
+            # sharded WTA's sequential tie rules and duplicate visits have
+            # no library form), so none is timed; PERF.md section 6 gives
+            # the reason per kernel.
             "library_ms": stats[name].get("library_ms")})
     for entry in report["kernels"]:
         if entry["launches"] < 1:

@@ -17,13 +17,20 @@
   K11 wta_gather.wta_merge     — WTA epilogue: clamped tail, merge and
                                  both confidences
   K12 median.median3x3         — 3x3 median, per channel
+  K13 wta_shard.epipolar_segment — one disp shard's segment of the
+                                 epipolar target scan (the sharded WTA)
+  K14 wta_shard.shard_merge_reference / shard_merge_target — the merges of
+                                 the shards' all-gathered summaries, the
+                                 target one with the WTA's maps
 
-K1-K8 replace the JAX package's pallas_calls; K9-K12 replace none: they
+K1-K8 replace the JAX package's pallas_calls; K9-K14 replace none: they
 are the fusions XLA makes of JAX functions' plain chains in its jitted
 frames (ops/support.py support_weights, ops/refinement.py
 refine_pass_v/_h, ops/wta_fast.py _tail_and_merge, ops/median.py
-median3x3).  Both methods launch K6 (the ASW SAD cost at scale 255 and
-its chunk's d0, the cross cost at scale 1) and K12.
+median3x3) and shard programs (parallel/wta_sharded.py epipolar_partial
+and the two_min_combine folds).  Both methods launch K6 (the ASW SAD cost
+at scale 255 and its chunk's d0, the cross cost at scale 1) and K12; K13
+and K14 run on the sharded ASW path only.
 
 Sources live in `csrc/`; `_build.library()` compiles them with nvcc at
 first use.  Each wrapper takes its plain PyTorch version for a CPU tensor
@@ -39,11 +46,12 @@ import torch
 # Launch count per kernel, incremented only where the kernel is launched
 # (never on the plain CPU route); asw_pass and oii_pass count their two
 # axes apart, and the windowed vertical pass apart from both; K10 counts
-# each of its three modes apart.
+# each of its three modes apart, K14 its two modes together.
 # Kernels the two methods share (K6, K12) stand in both tuples.
 ASW_KERNELS = ("asw_den", "asw_pass_v", "asw_pass_h", "asw_pass_win",
                "two_min", "wta_diag", "support_w", "refine_v", "refine_win",
-               "refine_h", "sad_volume", "wta_merge", "median3x3")
+               "refine_h", "sad_volume", "wta_merge", "median3x3",
+               "epipolar_segment", "shard_merge")
 CROSS_KERNELS = ("cross_arms", "sad_volume", "oii_pass_h", "oii_pass_v",
                  "vote_h", "vote_v", "median3x3")
 LAUNCHES = dict.fromkeys(ASW_KERNELS + CROSS_KERNELS, 0)

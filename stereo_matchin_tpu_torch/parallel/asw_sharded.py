@@ -17,7 +17,9 @@ support sums underflow eps).
 On CUDA tensors (cfg.kernels, kernels.use_kernels) a shard runs K1
 `asw_den` at its d0 for both axes, the windowed K2 `asw_pass_win` on each
 round's exchanged (Dl, H_loc + 2R, W) tile (its weights cover the centre
-rows only, so nothing is cropped), K2 h at d0 and K3 `two_min` at d0, K9
+rows only, so nothing is cropped), K2 h at d0, K3 `two_min` at d0, K13
+`epipolar_segment` and K14 `shard_merge` for the target scan and the
+merges (parallel/wta_sharded.py), K9
 `support_w` for the strips (the vertical ones on the centre rows of the
 exchanged image tile, at the shard's frame rows) and K10 `refine_win` and
 `refine_h` for the refinement passes, K6 `sad_volume` for the SAD cost

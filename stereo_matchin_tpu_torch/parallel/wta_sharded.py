@@ -14,9 +14,13 @@ The target view's epipolar probe (the slope-1 bresenham, asw_wta.cl:55-67)
 visits global plane b(i) = d1 + max(0, x-i) - x, which descends through
 the shards as i grows, and the clamped tail (i > x) revisits one plane.
 b(i) is monotone, so each shard's visits form one interval of i: each
-shard replays its interval with a masked sequential loop (plain, as in
-the JAX package) and the segments merge in descending shard order
-(= ascending i).
+shard replays its interval (K13 `epipolar_segment` on a CUDA tensor, the
+masked sequential loop `epipolar_partial` elsewhere, as in the JAX
+package) and the segments merge in descending shard order (= ascending
+i).  Both merges run as K14 (`shard_merge`) on a CUDA tensor, the target
+one with the WTA's maps; elsewhere their plain versions
+(`merge_reference_gathered`, `merge_target_gathered` + `wta_result`).
+The route follows `kernels` (cfg.kernels, kernels.use_kernels).
 
 Each compute segment between two all-gathers runs as steps of a stage
 runner `run(name, fn, *args)`: utils.replay_stage by default, which on
@@ -25,9 +29,9 @@ the whole shard program; the collectives stay eager here, between the
 steps), or utils.call_stage, which calls it.  A scan is a local step (the
 shard's summary, stacked), the all-gather, and a merge step that takes
 the gathered (n, 3, H, W) tensor whole: the reference scan "wta_local"
-and "wta_merge_reference", the target scan "wta_epipolar" (its D - 1
-steps one graph) and "wta_merge_target", and the WTA's "wta_result".  A
-penalty's `penalty * den` is formed inside the steps.
+and "wta_merge_reference", the target scan "wta_epipolar" and
+"wta_merge_target", which returns the WTA's maps.  A penalty's
+`penalty * den` is formed inside the steps.
 """
 
 from __future__ import annotations
@@ -98,8 +102,8 @@ def reference_scan_sharded(cost_local, d0: int, group, pen_scale=None,
     disparity."""
     s = run("wta_local", local_two_min, cost_local, pen_scale, pen_center,
             penalty, d0, big, kernels)
-    return run("wta_merge_reference", merge_reference_gathered,
-               comm.all_gather(s, group), big)
+    return run("wta_merge_reference", merge_reference_step,
+               comm.all_gather(s, group), big, kernels)
 
 
 def merge_reference(parts: list, big: float = 1e5) -> TwoMin:
@@ -115,6 +119,17 @@ def merge_reference(parts: list, big: float = 1e5) -> TwoMin:
 def merge_reference_gathered(g, big: float) -> TwoMin:
     """merge_reference over the all-gathered (n, 3, H, W) summaries."""
     return merge_reference(unstack_two_min(g), big)
+
+
+def merge_reference_step(g, big: float, kernels: str = "auto") -> TwoMin:
+    """The step after the reference all-gather: K14's reference mode on a
+    CUDA tensor, merge_reference_gathered elsewhere."""
+    from ..kernels import use_kernels
+
+    if use_kernels(kernels, g):
+        from ..kernels.wta_shard import shard_merge_reference
+        return shard_merge_reference(g, big)
+    return merge_reference_gathered(g, big)
 
 
 def epipolar_partial(cost_local, d1, d0: int, n_local: int, total_disp: int,
@@ -152,25 +167,37 @@ def epipolar_partial(cost_local, d1, d0: int, n_local: int, total_disp: int,
 
 def epipolar_segment(cost_local, d1, d0: int, n_local: int,
                      total_disp: int, pen_scale, pen_center, penalty,
-                     big: float) -> torch.Tensor:
-    """The step before the target all-gather: epipolar_partial (the
-    penalty as local_two_min's), stacked."""
-    return stack_two_min(epipolar_partial(
-        cost_local, d1, d0, n_local, total_disp, _scaled(pen_scale, penalty),
-        pen_center, big))
+                     big: float, kernels: str = "auto") -> torch.Tensor:
+    """The step before the target all-gather: this shard's segment (the
+    penalty as local_two_min's), stacked: K13 on a CUDA tensor,
+    epipolar_partial elsewhere."""
+    from ..kernels import use_kernels
+
+    sc = _scaled(pen_scale, penalty)
+    if use_kernels(kernels, cost_local):
+        from ..kernels.wta_shard import epipolar_segment as k13
+        return k13(cost_local, d1, d0, n_local, total_disp, sc, pen_center,
+                   big)
+    return stack_two_min(epipolar_partial(cost_local, d1, d0, n_local,
+                                          total_disp, sc, pen_center, big))
 
 
-def target_scan_sharded(cost_local, d1, d0: int, n_local: int,
+def target_scan_sharded(cost_local, ref: TwoMin, d0: int, n_local: int,
                         total_disp: int, group, penalty_scale=None,
                         penalty_center=None, big: float = 1e5, penalty=None,
-                        run=replay_stage):
-    """Merge the per-shard epipolar segments in ascending-i order, i.e.
+                        kernels: str = "auto",
+                        run=replay_stage) -> WTAResult:
+    """The target scan from the merged reference `ref` (its d the scan's
+    d1): the per-shard epipolar segments merged in ascending-i order, i.e.
     DESCENDING shard order, seeded with the sequential start (c = big,
-    b = d1).  Returns (d_target int32, conf_target) with (c2 - c1) / c2."""
-    seg = run("wta_epipolar", epipolar_segment, cost_local, d1, d0, n_local,
-              total_disp, penalty_scale, penalty_center, penalty, big)
-    return run("wta_merge_target", merge_target_gathered,
-               comm.all_gather(seg, group), d1, big)
+    b = d1).  Returns the WTA's maps, the reference's and the target's,
+    confidences (c2 - c1) / c2."""
+    seg = run("wta_epipolar", epipolar_segment, cost_local, ref.d, d0,
+              n_local, total_disp, penalty_scale, penalty_center, penalty,
+              big, kernels)
+    return run("wta_merge_target", merge_target_step,
+               comm.all_gather(seg, group), ref.c1, ref.c2, ref.d, big,
+               kernels)
 
 
 def merge_target(parts: list, d1, big: float = 1e5):
@@ -190,10 +217,23 @@ def merge_target_gathered(g, d1, big: float):
 
 
 def wta_result(c1, c2, d_ref, d_target, conf_target) -> WTAResult:
-    """The WTA's maps from the two merged scans: the "wta_result" step."""
+    """The WTA's maps from the two merged scans."""
     dt = c1.dtype
     return WTAResult(d_ref.to(dt), (c2 - c1) / c2, d_target.to(dt),
                      conf_target)
+
+
+def merge_target_step(g, c1, c2, d_ref, big: float,
+                      kernels: str = "auto") -> WTAResult:
+    """The step after the target all-gather: K14's target mode on a CUDA
+    tensor, merge_target_gathered + wta_result elsewhere; (c1, c2, d_ref)
+    the merged reference scan."""
+    from ..kernels import use_kernels
+
+    if use_kernels(kernels, g):
+        from ..kernels.wta_shard import shard_merge_target
+        return shard_merge_target(g, c1, c2, d_ref, big)
+    return wta_result(c1, c2, d_ref, *merge_target_gathered(g, d_ref, big))
 
 
 def wta_sharded(cost_local, d0: int, n_local: int, total_disp: int, group,
@@ -203,9 +243,8 @@ def wta_sharded(cost_local, d0: int, n_local: int, total_disp: int, group,
     maps."""
     ref = reference_scan_sharded(cost_local, d0, group, big=big,
                                  kernels=kernels, run=run)
-    d_t, conf_t = target_scan_sharded(cost_local, ref.d, d0, n_local,
-                                      total_disp, group, big=big, run=run)
-    return run("wta_result", wta_result, ref.c1, ref.c2, ref.d, d_t, conf_t)
+    return target_scan_sharded(cost_local, ref, d0, n_local, total_disp,
+                               group, big=big, kernels=kernels, run=run)
 
 
 def wta_refined_sharded(cost_local, d0: int, n_local: int, total_disp: int,
@@ -217,8 +256,7 @@ def wta_refined_sharded(cost_local, d0: int, n_local: int, total_disp: int,
     (penalty * den) * |ref - d| on global d."""
     ref = reference_scan_sharded(cost_local, d0, group, ref_denom, ref_value,
                                  big, kernels, penalty, run)
-    d_t, conf_t = target_scan_sharded(
-        cost_local, ref.d, d0, n_local, total_disp, group,
+    return target_scan_sharded(
+        cost_local, ref, d0, n_local, total_disp, group,
         penalty_scale=ref_denom_t, penalty_center=ref_value_t, big=big,
-        penalty=penalty, run=run)
-    return run("wta_result", wta_result, ref.c1, ref.c2, ref.d, d_t, conf_t)
+        penalty=penalty, kernels=kernels, run=run)

@@ -34,10 +34,11 @@ from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
                                                    _two_min_plain)
 
 from stereo_matchin_tpu_torch.kernels import sad_volume as ks
-from .torch_support import (ARMS_EDGES, OII_EDGES, SAD_EDGES, VOTE_EDGES,
-                            arms_image, cuda_device, k4_queued, max_ulp, n,
-                            oii_inputs, outlier_d1, sad_inputs, unorm8_pair,
-                            vote_inputs)
+from .torch_support import (ARMS_EDGES, OII_EDGES, SAD_EDGES,
+                            SHARD_WTA_EDGES, VOTE_EDGES, arms_image,
+                            cuda_device, k4_queued, max_ulp, n, oii_inputs,
+                            outlier_d1, sad_inputs, shard_wta_inputs,
+                            unorm8_pair, vote_inputs)
 
 pytestmark = pytest.mark.cuda
 EPS, BIG = 1e-5, 1e5
@@ -177,7 +178,8 @@ def test_slice_through_kernels_equals_plain_ops_and_counts_launches():
         "wta_diag": cfg.k_iters + 1, "support_w": 8,
         "refine_v": 2 * cfg.k_iters, "refine_win": 0,
         "refine_h": 2 * cfg.k_iters, "sad_volume": 1,
-        "wta_merge": cfg.k_iters + 1, "median3x3": 1}
+        "wta_merge": cfg.k_iters + 1, "median3x3": 1,
+        "epipolar_segment": 0, "shard_merge": 0}
     assert all(kernels.LAUNCHES[k] == 0 for k in kernels.CROSS_KERNELS
                if k not in kernels.ASW_KERNELS)
     want = asw.asw_pipeline(left, right, cfg.replace(kernels="jnp"))
@@ -726,7 +728,7 @@ def test_asw_debug_through_kernels_equals_the_pipeline(k_iters):
         "two_min": 1 + r + 1 + k, "wta_diag": 1 + r + 1 + k,
         "support_w": 8, "refine_v": 2 * k, "refine_win": 0,
         "refine_h": 2 * k, "sad_volume": 1, "wta_merge": 1 + r + 1 + k,
-        "median3x3": 1}
+        "median3x3": 1, "epipolar_segment": 0, "shard_merge": 0}
     want = asw.asw_pipeline(left, right, cfg)
     for g, w in zip(dbg.result, want):
         assert torch.equal(g, w)
@@ -772,7 +774,8 @@ def test_two_min_at_a_disparity_offset_bit_equal_to_plain(D, H, W, d0,
 def test_sharded_pipelines_on_the_card_equal_unsharded(mesh):
     """Two gloo ranks sharing the card (CUDA tensors staged through the
     host): both methods' maps bit-equal to the unsharded frames, and the
-    kernels launched per rank and frame (K3 at d0 on the disp shards)."""
+    kernels launched per rank and frame (K3 at d0, K13 and K14 on the disp
+    shards)."""
     from stereo_matchin_tpu_torch.parallel.distributed import spawn
     from stereo_matchin_tpu_torch.parallel.dryrun import Case, sharded_maps
 
@@ -801,7 +804,9 @@ def test_sharded_pipelines_on_the_card_equal_unsharded(mesh):
                         support_w=8 * frames,
                         refine_win=2 * cfg.k_iters * frames,
                         refine_h=2 * cfg.k_iters * frames,
-                        sad_volume=frames, median3x3=frames)
+                        sad_volume=frames, median3x3=frames,
+                        epipolar_segment=(cfg.k_iters + 1) * frames,
+                        shard_merge=2 * (cfg.k_iters + 1) * frames)
         else:
             want.update(cross_arms=2 * frames, sad_volume=frames,
                         oii_pass_h=frames, oii_pass_v=frames, vote_h=frames,
@@ -858,7 +863,9 @@ def test_replayed_shard_steps_equal_eager_on_one_rank(one_rank, method):
                     two_min=(cfg.k_iters + 1) * frames, support_w=8 * frames,
                     refine_win=2 * cfg.k_iters * frames,
                     refine_h=2 * cfg.k_iters * frames, sad_volume=frames,
-                    median3x3=frames)
+                    median3x3=frames,
+                    epipolar_segment=(cfg.k_iters + 1) * frames,
+                    shard_merge=2 * (cfg.k_iters + 1) * frames)
     else:
         want.update(cross_arms=2 * frames, sad_volume=frames,
                     oii_pass_h=frames, oii_pass_v=frames, vote_h=frames,
@@ -1426,3 +1433,112 @@ def test_sad_volume_at_scale_255_bit_equal_to_plain(H, W, D, d0):
     assert torch.equal(got, tops.sad_cost_volume(left, right, D, 255.0, d0))
     assert torch.equal(tops.sad_cost(left, right, D, 255.0, d0, "jnp"), got)
     assert kernels.LAUNCHES["sad_volume"] == before + 1
+
+
+# --- K13 epipolar_segment, K14 shard_merge (the sharded WTA) -----------------
+
+def _wta_sharded():
+    """parallel/wta_sharded.py (the package exports a function of its
+    name)."""
+    import importlib
+
+    return importlib.import_module(
+        "stereo_matchin_tpu_torch.parallel.wta_sharded")
+
+
+def _shard_wta_bit_equal(vols, dl, d_pad, maps, d1_of, penalty=0.085):
+    """One frame of the sharded WTA's steps through K13/K14 ("pallas")
+    against their plain versions ("jnp") on the card, the same bits: K14's
+    reference merge of the shards' K3 summaries, K13 on every shard from
+    d1_of(the merged reference's d), K14's target merge of K13's segments.
+    maps: the WTA_REF's (ref_value, ref_denom, ref_value_t, ref_denom_t)
+    on the card, or None.  Returns the launches counted."""
+    twta = _wta_sharded()
+    ref_pen = (maps[1], maps[0], penalty) if maps else (None,) * 3
+    tgt_pen = (maps[3], maps[2], penalty) if maps else (None,) * 3
+    g = torch.stack([twta.local_two_min(v, *ref_pen, k * dl, BIG, "jnp")
+                     for k, v in enumerate(vols)])
+    before = dict(kernels.LAUNCHES)
+    ref = twta.merge_reference_step(g, BIG, "jnp")
+    _same_bits(twta.merge_reference_step(g, BIG, "pallas"), ref)
+    d1 = d1_of(ref.d)
+    segs = []
+    for k, v in enumerate(vols):
+        segs.append(twta.epipolar_segment(v, d1, k * dl, dl, d_pad, *tgt_pen,
+                                          BIG, "pallas"))
+        _same_bits(segs[-1:], [twta.epipolar_segment(
+            v, d1, k * dl, dl, d_pad, *tgt_pen, BIG, "jnp")])
+    g_t = torch.stack(segs)
+    _same_bits(twta.merge_target_step(g_t, ref.c1, ref.c2, d1, BIG, "pallas"),
+               twta.merge_target_step(g_t, ref.c1, ref.c2, d1, BIG, "jnp"))
+    torch.cuda.synchronize()
+    return {k: kernels.LAUNCHES[k] - before[k]
+            for k in ("epipolar_segment", "shard_merge")}
+
+
+@pytest.mark.parametrize("with_penalty", [False, True])
+@pytest.mark.parametrize("case", list(SHARD_WTA_EDGES))
+def test_shard_wta_kernels_bit_equal_to_plain(case, with_penalty):
+    dev = cuda_device()
+    D, shards, H, W, kind = SHARD_WTA_EDGES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + with_penalty)
+    cost, maps, rand = shard_wta_inputs(rng, D, shards, H, W, BIG)
+    d_pad = cost.shape[0]
+    dl = d_pad // shards
+    vols = [torch.from_numpy(cost[k * dl:(k + 1) * dl]).to(dev)
+            for k in range(shards)]
+    rand = torch.from_numpy(rand).to(dev)
+    d1_of = {"argmin": lambda d: d, "zero": torch.zeros_like,
+             "last": lambda d: torch.full_like(d, D - 1),
+             "random": lambda d: rand}[kind]
+    maps = (tuple(torch.from_numpy(m).to(dev) for m in maps)
+            if with_penalty else None)
+    assert _shard_wta_bit_equal(vols, dl, d_pad, maps, d1_of) == {
+        "epipolar_segment": shards, "shard_merge": 2}
+
+
+def test_shard_wta_kernels_bit_equal_at_a_config3_shard():
+    """Both shards of a config-3 (1, 2, 2) mesh: 140 of 280 planes of 994
+    x 2880 each, integer costs, d1 uniform, with and without the
+    penalty."""
+    dev = cuda_device()
+    H, W, D = 994, 2880, 280
+    gen = torch.Generator(device=dev).manual_seed(61)
+    vols = [torch.rand((D // 2, H, W), generator=gen, device=dev).mul_(
+        400).floor_() for _ in range(2)]
+
+    def ints(hi):
+        return torch.randint(0, hi, (H, W), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    maps = (ints(D) + 0.5 * ints(2), torch.rand((H, W), generator=gen,
+                                                device=dev) * 3,
+            ints(D) + 0.5 * ints(2), torch.rand((H, W), generator=gen,
+                                                device=dev) * 3)
+    d1 = ints(D)
+    for m in (None, maps):
+        assert _shard_wta_bit_equal(vols, D // 2, D, m, lambda d: d1) == {
+            "epipolar_segment": 2, "shard_merge": 2}
+    del vols
+    torch.cuda.empty_cache()
+
+
+def test_shard_wta_wrappers_refuse_bad_arguments():
+    from stereo_matchin_tpu_torch.kernels import wta_shard as kws
+
+    dev = cuda_device()
+    cost = torch.zeros((4, 5, 6), device=dev)
+    d1 = torch.zeros((5, 6), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        kws.epipolar_segment(cost.transpose(1, 2).contiguous().transpose(
+            1, 2), d1, 0, 4, 8)
+    with pytest.raises(ValueError, match="n_local"):
+        kws.epipolar_segment(cost, d1, 0, 5, 8)
+    with pytest.raises(ValueError, match="lies on"):
+        kws.epipolar_segment(cost, d1.cpu(), 0, 4, 8)
+    g = torch.zeros((2, 3, 5, 6), device=dev)
+    with pytest.raises(ValueError, match="gathered"):
+        kws.shard_merge_reference(g[:, :2])
+    with pytest.raises(ValueError, match="contiguous"):
+        kws.shard_merge_reference(g.transpose(2, 3).contiguous().transpose(
+            2, 3))

@@ -51,7 +51,7 @@ MAPS = {"asw": ("disparity", "filled", "consistency_pre", "consistency_post",
                 "wta_left", "wta_right"),
         "cross": ("initial", "final", "median_left")}
 WTA = ["wta_local", "wta_merge_reference", "wta_epipolar",
-       "wta_merge_target", "wta_result"]
+       "wta_merge_target"]
 CROSS_STEPS = ["cross_local", "cross_merge", "cross_vote", "cross_median"]
 TIMEOUT_S = 120.0
 

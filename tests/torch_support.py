@@ -257,3 +257,53 @@ def arms_image(rng, H: int, W: int, kind: str) -> np.ndarray:
     spots = rng.random((H, W)) < 0.03
     img[spots] = rng.random((int(spots.sum()), 3), dtype=np.float32)
     return np.ascontiguousarray(img, dtype=np.float32)
+
+
+# Edge shapes of the sharded WTA's kernels K13 (epipolar_segment) and K14
+# (shard_merge), name -> (D, shards, H, W, d1): D real planes padded with
+# `big` planes up to a multiple of the shards (the pad planes of the last
+# shard or shards, as parallel/asw_sharded.py pins them); d1 the target
+# scan's: "argmin" (the merged reference's, as the pipeline hands it on),
+# "zero", "last" (D - 1), "random" (uniform in [0, D)).  One shard; two,
+# three and five shards with pad planes; one plane a shard (Dl = 1), also
+# with a last shard of pad planes only; d1 = 0; d1 = D - 1 on a frame
+# narrower than D (every pixel has x < d1: long clamped tails, diagonals
+# that miss the first shards); a row past one block of either kernel with
+# H * W odd.
+SHARD_WTA_EDGES = {
+    "one_shard": (13, 1, 6, 40, "argmin"),
+    "two_shards_padded": (13, 2, 6, 40, "argmin"),
+    "three_shards_random": (20, 3, 5, 33, "random"),
+    "five_shards": (23, 5, 4, 50, "random"),
+    "Dl1": (5, 5, 6, 17, "random"),
+    "Dl1_pad_shard": (4, 5, 5, 12, "last"),
+    "d1_zero": (13, 2, 5, 30, "zero"),
+    "d1_last_narrow": (31, 3, 4, 9, "last"),
+    "wide_ragged": (9, 2, 3, 301, "argmin"),
+}
+
+
+def shard_wta_inputs(rng, D: int, shards: int, H: int, W: int,
+                     big: float = 1e5):
+    """The sharded WTA's inputs on one frame, numpy: the (d_pad, H, W)
+    volume (integer costs in [0, 30): exact ties; a corner at and above
+    big; a row of zeros on every plane, so that the confidences of 0 / 0
+    show; the disp padding at big), the WTA_REF's maps (ref_value,
+    ref_denom, ref_value_t, ref_denom_t; values on integers and
+    half-integers, where penalties tie) and a uniform d1 in [0, D)."""
+    d_pad = -(-D // shards) * shards
+    cost = rng.integers(0, 30, (d_pad, H, W)).astype(np.float32)
+    cost[:, :2, :3] = big
+    cost[: D // 2, :1, 3:6] = 2 * big
+    cost[:, H - 1, W // 2:] = 0.0
+    cost[D:] = big
+
+    def value():
+        return (rng.integers(0, D, (H, W))
+                + 0.5 * rng.integers(0, 2, (H, W))).astype(np.float32)
+
+    def denom():
+        return rng.uniform(0, 3, (H, W)).astype(np.float32)
+
+    maps = (value(), denom(), value(), denom())
+    return cost, maps, rng.integers(0, D, (H, W)).astype(np.int32)
