@@ -16,7 +16,8 @@ shapes and row shards in phase 3b, at config 3 in phase 14; K11, the WTA
 epilogue, K12, the median, and K6 on the ASW SAD cost at scale 255 in
 phase 3c, at config 3 in phase 14; K13 and K14, the sharded WTA's epipolar
 segment and shard merges, in phase 3d at SHARD_WTA_EDGES, at config 3's
-shard in phase 14), drives the ASW
+shards in phase 14 with a uniform, a structured and a shifted d1, K13
+beside the floats it stages), drives the ASW
 and the cross-based pipelines at REFERENCE_CONFIG on the committed
 fixture pair through the kernels and through the plain ops, checks the
 launch counts of each path and its output against the JAX package's
@@ -906,10 +907,15 @@ def refine_kernels_config3(left, cfg, smi):
 # K12's edge shapes, (H, W, C, offset in floats of the image's first
 # element; C = 0 for an (H, W) map): one pixel, one row, one column, 2x2,
 # odd sizes with three channels and with one, a map 4 bytes off a 16-byte
-# boundary, and a row past one block of threads.
+# boundary, and a row past one tile; K12's tiles (kernels/median.py
+# median_tiles): four channels (the kernel's generic C) in one row and in
+# 16-row tiles, W = 1, H and W * C off the tile, and 32-row tiles whose
+# last one holds one row, 4 bytes off a 16-byte boundary.
 MEDIAN_EDGES = [(1, 1, 0, 0), (1, 7, 3, 0), (5, 1, 0, 0), (2, 2, 3, 0),
                 (37, 53, 3, 0), (37, 53, 1, 0), (37, 53, 0, 1),
-                (3, 300, 0, 0)]
+                (3, 300, 0, 0), (1, 90, 4, 0), (300, 2000, 4, 0),
+                (33, 1, 3, 0), (70, 45, 3, 0), (67, 300, 1, 0),
+                (1025, 4096, 0, 1)]
 # K6 on the ASW route, (planes, d0): the whole 288x384 volume and the chunks
 # of aggr_d_chunks 2 and 3; config 3's chunks (d_max 279, aggr_d_chunks 4).
 ASW_SAD_CHUNKS = [(61, 0), (31, 0), (30, 31), (21, 42)]
@@ -1192,9 +1198,11 @@ def check_shard_wta(tag, vols, dl, d_pad, maps, d1_of, big, penalty, stats):
     (plain), K13 on every shard from d1_of(the merged reference's d), and
     K14's target merge of the plain segments, each against its plain
     version (kernels="jnp"), the same bits (the d planes' int32 bits and
-    the NaN confidences included).  maps: the WTA_REF's (ref_value,
+    the NaN confidences included); K13 also by each of its walks.  maps: the WTA_REF's (ref_value,
     ref_denom, ref_value_t, ref_denom_t), or None for the WTA."""
     import torch
+
+    from stereo_matchin_tpu_torch.kernels import wta_shard as ks
 
     twta = wta_sharded_module()
     ref_pen = (maps[1], maps[0], penalty) if maps else (None,) * 3
@@ -1207,6 +1215,7 @@ def check_shard_wta(tag, vols, dl, d_pad, maps, d1_of, big, penalty, stats):
                  stats["shard_merge"])
     d1 = d1_of(ref.d)
     segs = []
+    sc = twta._scaled(tgt_pen[0], tgt_pen[2])
     for k, v in enumerate(vols):
         seg = twta.epipolar_segment(v, d1, k * dl, dl, d_pad, *tgt_pen, big,
                                     "jnp")
@@ -1214,6 +1223,11 @@ def check_shard_wta(tag, vols, dl, d_pad, maps, d1_of, big, penalty, stats):
                      [twta.epipolar_segment(v, d1, k * dl, dl, d_pad,
                                             *tgt_pen, big, "pallas")],
                      [seg], stats["epipolar_segment"])
+        for walk in ("pixel", "segment"):     # both walks, whichever runs
+            compare_bits(f"epipolar_segment {tag} shard {k} walk {walk}",
+                         [ks.epipolar_segment(v, d1, k * dl, dl, d_pad, sc,
+                                              tgt_pen[1], big, walk)],
+                         [seg], stats["epipolar_segment"])
         segs.append(seg)
     g_t = torch.stack(segs)
     compare_bits(f"shard_merge target {tag}",
@@ -1230,7 +1244,8 @@ def check_shard_wta_kernels(cfg, stats):
     bits."""
     import torch
 
-    from tests.torch_support import SHARD_WTA_EDGES, shard_wta_inputs
+    from tests.torch_support import (SHARD_WTA_EDGES, shard_wta_d1,
+                                     shard_wta_inputs)
 
     rng = np.random.default_rng(53)
     big = cfg.big
@@ -1242,10 +1257,7 @@ def check_shard_wta_kernels(cfg, stats):
         vols = [torch.from_numpy(cost[k * dl:(k + 1) * dl]).cuda()
                 for k in range(shards)]
         maps = tuple(torch.from_numpy(m).cuda() for m in maps)
-        rand = torch.from_numpy(rand).cuda()
-        d1_of = {"argmin": lambda d: d, "zero": torch.zeros_like,
-                 "last": lambda d: torch.full_like(d, D - 1),
-                 "random": lambda d: rand}[kind]
+        d1_of = shard_wta_d1(kind, D, rand)
         for with_pen in (False, True):
             check_shard_wta(f"{case} D={D}/{shards} {H}x{W} d1={kind} "
                             f"penalty={with_pen}", vols, dl, d_pad,
@@ -1254,21 +1266,80 @@ def check_shard_wta_kernels(cfg, stats):
     torch.cuda.synchronize()
 
 
-def segment_walk(d1, d0, n_local, total_disp):
-    """(loads, steps) of K13 on one shard for this d1: the unclamped steps
-    each read one float, a clamped tail reads its base once and walks its
-    steps without a load (csrc/wta_shard.cu)."""
+def segment_walk(d1, d0, n_local, total_disp, plan=None):
+    """K13's work on one shard for this d1 (csrc/wta_shard.cu): {"loads":
+    a float for each counted unclamped step and each clamped tail (the
+    bound's), "steps": the steps walked, "staged": the floats K13 copies
+    into its blocks' ring windows (the planes [ka, kb] that 1 / share of a
+    block's columns walk, each the columns its pixels read), "direct": the
+    floats it loads directly (the planes outside a block's staged range,
+    and the tails' bases)}.  plan: K13's plan for this row width
+    (kernels/wta_shard.py segment_plan, the built kernel's, where None).
+    tests/test_torch_wta_shard_tiles.py holds it to a walk of the
+    kernel."""
     import torch
 
-    xs = torch.arange(d1.shape[1], device=d1.device)[None, :]
-    imax = d1.clamp(max=total_disp - 1)
-    lo = (d1 - d0 - n_local + 1).clamp(min=0)
-    hi = torch.minimum(torch.minimum(xs, d1 - d0), imax - 1)
-    main = (hi - lo + 1).clamp(min=0).long()
-    btl = d1 - xs - d0
+    H, W = d1.shape
+    dev = d1.device
+    xs = torch.arange(W, device=dev)[None, :]
+    d = d1.long()
+    imax = d.clamp(max=total_disp - 1)
+    lo = (d - d0 - n_local + 1).clamp(min=0)
+    hi = torch.minimum(torch.minimum(xs, d - d0), imax - 1)
+    act = hi >= lo
+    klo = torch.where(act, d - d0 - hi, 0)
+    khi = torch.where(act, d - d0 - lo, -1)
+    main = khi - klo + 1
+    btl = d - xs - d0
     tail = (xs + 1 < imax) & (btl >= 0) & (btl < n_local)
-    steps = torch.where(tail, imax - xs - 1, 0).long()
-    return int(main.sum() + tail.sum()), int(main.sum() + steps.sum())
+    tail_steps = torch.where(tail, imax - xs - 1, 0)
+    counts = {"loads": int(main.sum() + tail.sum()),
+              "steps": int(main.sum() + tail_steps.sum()),
+              "staged": 0, "direct": int(tail.sum())}
+    if H * W == 0 or not bool(act.any()):
+        return counts
+    if plan is None:
+        from stereo_matchin_tpu_torch.kernels import wta_shard as ks
+
+        plan = ks.segment_plan(W, n_local, total_disp)
+    seg, n_seg = plan["seg"], plan["n_seg"]
+    nb = H * n_seg
+    blk = (torch.arange(H, device=dev)[:, None] * n_seg + xs // seg).expand(
+        H, W)
+    # Each block's coverage of its planes, by a difference array.
+    stride = n_local + 1
+    cov = torch.zeros(nb * stride, dtype=torch.long, device=dev)
+    one = torch.ones(int(act.sum()), dtype=torch.long, device=dev)
+    cov.index_add_(0, (blk * stride + klo)[act], one)
+    cov.index_add_(0, (blk * stride + khi + 1)[act], -one)
+    run = cov.view(nb, stride)[:, :n_local].cumsum(1)
+    x0 = torch.arange(nb, device=dev) % n_seg * seg
+    x1 = (x0 + seg).clamp(max=W)
+    ok = (run > 0) & (run * plan["share"] >= (x1 - x0)[:, None])
+    planes = torch.arange(n_local, device=dev)[None, :]
+    any_ok = ok.any(1)
+    ka = torch.where(any_ok, torch.where(ok, planes, n_local).amin(1), 0)
+    kb = torch.where(any_ok, torch.where(ok, planes, -1).amax(1), -1)
+    kab, kbb = ka[blk], kb[blk]
+    # The windows: the column offsets of the pixels that walk a staged
+    # plane.
+    inter = act & (khi >= kab) & (klo <= kbb)
+    u = xs - d + d0
+    zero = torch.zeros(nb, dtype=torch.long, device=dev)
+    umin = zero.scatter_reduce(0, blk[inter], u[inter], "amin",
+                               include_self=False)
+    umax = zero.scatter_reduce(0, blk[inter], u[inter], "amax",
+                               include_self=False)
+    lowc = (x0 - max(total_disp - 2, 0)).clamp(min=0)[:, None]
+    highc = (x1 - 1)[:, None]
+    ws = torch.maximum(lowc, umin[:, None] + planes)
+    we = torch.minimum(highc, umax[:, None] + planes)
+    staged = (planes >= ka[:, None]) & (planes <= kb[:, None])
+    counts["staged"] = int(((we - ws + 1).clamp(min=0) * staged).sum())
+    overlap = (torch.minimum(khi, kbb) - torch.maximum(klo, kab) + 1).clamp(
+        min=0)
+    counts["direct"] += int(torch.where(act, main - overlap, 0).sum())
+    return counts
 
 
 def segment_sectors(d1, d0, n_local, total_disp):
@@ -1298,17 +1369,23 @@ def segment_sectors(d1, d0, n_local, total_disp):
 def shard_wta_config3(cfg, stats, smi):
     """K13 and K14 at a config-3 (1, 2, 2) shard's shapes (2 shards of 140
     of the 280 planes, 994 of the 1988 rows x 2880), integer costs in
-    [0, 400), d1 uniform in [0, D - 1] (as phase 19 times the scan alone):
-    both shards and both merges against their plain versions (the same
-    bits, with and without the penalty), then timed in turns with the
-    target penalty (the WTA_REF's, 6 of a frame's 7 scans) beside their
-    bounds from this run's inputs: K13 on each shard (its loads, 4 bytes
-    each, and the 32-byte sectors they touch), K14 in both modes.  The
-    kernels line takes K13 on shard 0 (the longer walks) and K14's target
-    mode.  Returns one JSON-ready line."""
+    [0, 400), d1 uniform in [0, D - 1] (as phase 19 times the scan alone)
+    structured (tests/torch_support.py structured_d1: a smooth surface in
+    [0, 40) with about 3 in 32 outliers in [D // 3, D - 1]) and shifted
+    (shifted_d1: 37, config3_pair's shift, with 3 in 100 pixels uniform,
+    as the sharded path's real pair gives it): both shards
+    and both merges against their plain versions (the same bits, with and
+    without the penalty), then timed in turns with the target penalty (the
+    WTA_REF's, 6 of a frame's 7 scans) beside their bounds from this run's
+    inputs: K13 on each shard and d1 (its counted steps' loads, 4 bytes
+    each, and the 32-byte sectors they touch; the floats it stages in its
+    ring and loads directly, segment_walk), K14 in both modes.  The
+    kernels line takes K13 on shard 0 with the uniform d1 (the longer
+    walks) and K14's target mode.  Returns one JSON-ready line."""
     import torch
 
     from stereo_matchin_tpu_torch.kernels import wta_shard as ks
+    from tests.torch_support import shifted_d1, structured_d1
 
     twta = wta_sharded_module()
     H, W = CONFIG3_HW[0] // 2, CONFIG3_HW[1]
@@ -1326,13 +1403,17 @@ def shard_wta_config3(cfg, stats, smi):
     vols = [rand(dl, H, W).mul_(400).floor_() for _ in range(2)]
     maps = (ints(D) + 0.5 * ints(2), rand(H, W) * 3,
             ints(D) + 0.5 * ints(2), rand(H, W) * 3)
-    d1 = ints(D)
+    d1s = {"uniform": ints(D),
+           "structured": structured_d1(H, W, D, 73, "cuda"),
+           "shifted": shifted_d1(H, W, D, 79, "cuda")}
     local = {"epipolar_segment": {}, "shard_merge": {}}
-    for with_pen in (False, True):
-        check_shard_wta(f"config 3 shard penalty={with_pen}", vols, dl, D,
-                        maps if with_pen else None, lambda d: d1, big,
-                        cfg.penalty, local)
+    for kind, d1 in d1s.items():
+        for with_pen in (False, True):
+            check_shard_wta(f"config 3 shard d1 {kind} penalty={with_pen}",
+                            vols, dl, D, maps if with_pen else None,
+                            lambda d, d1=d1: d1, big, cfg.penalty, local)
     sc, ct = cfg.penalty * maps[3], maps[2]
+    d1 = d1s["uniform"]
     g = torch.stack([twta.local_two_min(v, maps[1], maps[0], cfg.penalty,
                                         k * dl, big, "jnp")
                      for k, v in enumerate(vols)])
@@ -1342,16 +1423,19 @@ def shard_wta_config3(cfg, stats, smi):
     HW = H * W
     out = []
     cases = {}
-    for k, v in enumerate(vols):
-        loads, steps = segment_walk(d1, k * dl, dl, D)
-        cases[f"epipolar_segment shard {k}"] = (
-            lambda v=v, k=k: ks.epipolar_segment(v, d1, k * dl, dl, D, sc,
-                                                 ct, big),
-            lambda v=v, k=k: twta.stack_two_min(twta.epipolar_partial(
-                v, d1, k * dl, dl, D, sc, ct, big)),
-            (4 * loads + 24 * HW, 6 * steps), 5, 1,
-            {"loads": loads, "steps": steps,
-             "sectors": segment_sectors(d1, k * dl, dl, D)})
+    for kind, dk in d1s.items():
+        for k, v in enumerate(vols):
+            walk = segment_walk(dk, k * dl, dl, D)
+            name = ("epipolar_segment shard 0" if (kind, k) == ("uniform", 0)
+                    else f"epipolar_segment d1 {kind} shard {k}")
+            cases[name] = (
+                lambda v=v, k=k, dk=dk: ks.epipolar_segment(
+                    v, dk, k * dl, dl, D, sc, ct, big),
+                lambda v=v, k=k, dk=dk: twta.stack_two_min(
+                    twta.epipolar_partial(v, dk, k * dl, dl, D, sc, ct, big)),
+                (4 * walk["loads"] + 24 * HW, 6 * walk["steps"]), 5, 1,
+                walk | {"d1": kind,
+                        "sectors": segment_sectors(dk, k * dl, dl, D)})
     cases["shard_merge target"] = (
         lambda: ks.shard_merge_target(g_t, ref.c1, ref.c2, ref.d, big),
         lambda: twta.wta_result(ref.c1, ref.c2, ref.d,
@@ -1371,9 +1455,14 @@ def shard_wta_config3(cfg, stats, smi):
         if "sectors" in extra:
             entry["sector_bound_ms"] = (extra["sectors"] * 32
                                         / HBM_BYTES_PER_S * 1e3)
+            entry["staged_bytes"] = 4 * extra["staged"]
+            entry["staged_ms"] = (4 * (extra["staged"] + extra["direct"])
+                                  / HBM_BYTES_PER_S * 1e3)
             note = (f"; {extra['loads']} loads, {extra['steps']} steps, "
                     f"{extra['sectors']} 32-byte sectors: "
-                    f"{entry['sector_bound_ms']:.4f} ms")
+                    f"{entry['sector_bound_ms']:.4f} ms; staged "
+                    f"{extra['staged']} and direct {extra['direct']} "
+                    f"floats: {entry['staged_ms']:.4f} ms")
         print(f"  {name}: {line}  ({dl} planes of {H}x{W}, D={D}; bound "
               f"{bound_ms:.4f} ms by {bound_by}{note}; {smi})")
         out.append(entry)

@@ -29,10 +29,11 @@ kernel's end), beside one unprofiled frame's host ms.  With --sharded
 the frame is the sharded pipeline at config 3 on a (1, 2, 2) mesh of 4
 gloo ranks sharing the card (parallel/, the pairs of chip_smoke.py phase
 19), its steps replayed from CUDA graphs or run eagerly with --eager; each
-rank runs two frames, then rank 0 profiles its third while the others run
-theirs, and it prints rank 0's numbers as above and its device time by
-step (the steps' names, parallel/asw_sharded.py and cross_sharded.py),
-the device work outside every step being the collectives' copies.  Needs
+rank runs two frames, then profiles its third (the ranks at once), and it
+prints every rank's numbers as above, with its (batch, row, disp)
+coordinates, and its device time by step (the steps' names,
+parallel/asw_sharded.py and cross_sharded.py), the device work outside
+every step being the collectives' copies.  Needs
 an NVIDIA GPU; prints the card's nvidia-smi name and power limit beside
 the numbers.
 """
@@ -166,7 +167,7 @@ def main() -> int:
 
 
 def sharded(method: str, eager: bool, smi: str) -> int:
-    """--sharded: spawn the 4 ranks and print rank 0's profile."""
+    """--sharded: spawn the 4 ranks and print every rank's profile."""
     import dataclasses
 
     from chip_smoke import CONFIG3_HW, config3_batch, scene_batch
@@ -180,13 +181,14 @@ def sharded(method: str, eager: bool, smi: str) -> int:
             else (scene_batch, (4, *CONFIG3_HW, 279)))
     out = spawn(sharded_rank, 4, "gloo",
                 (method, eager, pair, dataclasses.asdict(cfg)), 900)
-    print(f"{out[0]}; {smi}")
+    for report in out:
+        print(f"{report}; {smi}")
     return 0
 
 
 def sharded_rank(rank, method, eager, pair, cfg_kw) -> str:
-    """Rank function of --sharded: two frames, then a third one, profiled on
-    rank 0.  Returns rank 0's report (the other ranks return "")."""
+    """Rank function of --sharded: two frames, then a third one, profiled.
+    Returns the rank's report."""
     import contextlib
     import io
 
@@ -227,9 +229,6 @@ def sharded_rank(rank, method, eager, pair, cfg_kw) -> str:
         return (time.perf_counter() - t0) * 1e3
 
     cold, warm = frame(), frame()
-    if rank != 0:
-        frame()
-        return ""
     kernels.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -240,7 +239,8 @@ def sharded_rank(rank, method, eager, pair, cfg_kw) -> str:
     device_ms = sum(e.device_time_total for e in rows) / 1e3
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
-        print(f"sharded {method} rank 0 of (1, 2, 2), 4 gloo ranks on one "
+        print(f"sharded {method} rank {rank} at {mesh.get_coordinate()} of "
+              f"(1, 2, 2), 4 gloo ranks on one "
               f"card, config 3, steps {'eager' if eager else 'replayed'}: "
               f"frames {cold:.1f} (cold), {warm:.1f} ms; profiled "
               f"{host_ms:.1f} ms host, {device_ms:.1f} ms device "

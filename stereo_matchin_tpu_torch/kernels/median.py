@@ -7,9 +7,11 @@ network over nine edge-clamped taps) in the JAX package's jitted frames.
 The plain version is ops/median.py `median3x3_plain`: a CPU tensor takes
 it, a CUDA tensor launches the kernel or raises.
 
-The plan is one thread per output element of the (H, W, C) image in its
-own layout (C = 1 for an (H, W) map), THREADS a block;
-tests/test_torch_median.py walks that indexing in numpy.
+The plan (`median_tiles`, csrc/median.cu's, read through ctypes): tiles
+of a row's elements (channel c of pixel x is element x * C + c, so a tile
+needs no division by C) by `ty` rows, each staged with its one-row and
+C-element halo in shared memory, clamped to the frame's edges.
+tests/test_torch_median.py walks those tiles in numpy.
 """
 
 from __future__ import annotations
@@ -23,7 +25,17 @@ from . import LAUNCHES, check_tensor, raise_on_error, require_cuda
 from ._build import library
 from ..ops.median import median3x3_plain
 
-THREADS = 256                   # threads a block (csrc/median.cu kThreadsK12)
+def median_tiles(H: int, W: int, C: int) -> tuple[int, int, int, int]:
+    """(threads, ty, gx, gy): elements of a row a tile, rows a tile, tiles
+    along a row's W * C elements and down the H rows, as csrc/median.cu
+    median3x3_plan decides them (builds the library).  Raises ValueError
+    where no tile fits (C above ~1470)."""
+    out = (ctypes.c_int * 5)()
+    _lib().median3x3_plan(H, W, C, out)
+    if out[1] == 0:
+        raise ValueError(f"median3x3: a tile of {C} channels does not fit "
+                         f"a block's shared memory")
+    return tuple(out[:4])
 
 
 @functools.cache
@@ -32,6 +44,8 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.median3x3_f32.argtypes = [p, p, i, i, i, p]
     lib.median3x3_f32.restype = i
+    lib.median3x3_plan.argtypes = [i, i, i, p]
+    lib.median3x3_plan.restype = None
     return lib
 
 
@@ -49,6 +63,11 @@ def median3x3(img: torch.Tensor) -> torch.Tensor:
     require_cuda(img)
     H, W = img.shape[:2]
     C = img.shape[2] if img.dim() == 3 else 1
+    if img.numel() >= 2 ** 31:
+        raise ValueError("median3x3: the kernel indexes fewer than 2^31 "
+                         "elements")
+    if img.numel() and median_tiles(H, W, C)[3] > 65535:
+        raise ValueError(f"median3x3: {H} rows need more than 65535 tiles")
     out = torch.empty_like(img)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream

@@ -12,6 +12,17 @@ WTA's maps).  The plain versions are parallel/wta_sharded.py's
 `merge_target_gathered` + `wta_result`: a CPU tensor takes them, a CUDA
 tensor launches the kernel or raises.  Both count their launches, K14's
 two modes under one name.
+
+K13's plan (`segment_plan`, csrc/wta_shard.cu's, read through ctypes): a
+block owns a segment of one row (the row split into equal segments), its
+pixels' trackers in registers; it stages the planes that a share of its
+columns walk through a ring of windows in shared memory, each window the
+columns its pixels read of one plane, and walks the other planes of its
+pixels through a queue, one pixel a thread (buffered in the ring where
+no plane is staged).  A launch whose grid of segment blocks would be
+small takes the pixel walk instead: one thread a pixel, direct loads.
+A shape whose ring does not fit a block's shared memory is refused.
+tests/test_torch_wta_shard_tiles.py walks that schedule in numpy.
 """
 
 from __future__ import annotations
@@ -26,12 +37,42 @@ from ._build import library
 from ..ops.wta import WTAResult
 
 
+PLAN_KEYS = ("threads", "pix", "ring", "share", "n_seg", "seg", "slot",
+             "smem", "min_grid")
+WALKS = {"auto": 0, "pixel": 1, "segment": 2}
+
+
+def segment_plan(W: int, n_local: int, total_disp: int) -> dict:
+    """K13's plan for a row of W >= 1 columns, as csrc/wta_shard.cu
+    epipolar_segment_plan decides it (builds the library): {"threads": a
+    block's, "pix": pixels a thread, "ring": windows in the ring, "share":
+    a staged plane reaches 1 / share of its block's columns, "n_seg":
+    segments a row, "seg": columns a segment (the last one ragged),
+    "slot": floats a ring window, "smem": the block's shared memory,
+    "min_grid": the least H * n_seg blocks with which a launch takes the
+    segment walk (fewer: the pixel walk)}.  Raises ValueError where the
+    block does not fit."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    _lib().epipolar_segment_plan(W, n_local, total_disp, out)
+    plan = dict(zip(PLAN_KEYS, out))
+    if plan["smem"] == 0:
+        raise ValueError(
+            f"epipolar_segment: a ring of {plan['ring']} windows of "
+            f"{plan['slot']} floats, a queue of {plan['seg']} pixels and "
+            f"{n_local} planes' counts does not fit a block's shared memory")
+    return plan
+
+
 @functools.cache
 def _lib():
     lib = library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.epipolar_segment_f32.argtypes = [p] * 5 + [i] * 6 + [f, p]
     lib.epipolar_segment_f32.restype = i
+    lib.epipolar_segment_walk_f32.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
+    lib.epipolar_segment_walk_f32.restype = i
+    lib.epipolar_segment_plan.argtypes = [i, i, i, p]
+    lib.epipolar_segment_plan.restype = None
     lib.shard_merge_reference_f32.argtypes = [p, i, i, i, f, p, p, p, p]
     lib.shard_merge_reference_f32.restype = i
     lib.shard_merge_target_f32.argtypes = [p, i, i, i, f] + [p] * 8
@@ -51,15 +92,17 @@ def epipolar_segment(cost: torch.Tensor, d1: torch.Tensor, d0: int,
                      n_local: int, total_disp: int,
                      sc: torch.Tensor | None = None,
                      ct: torch.Tensor | None = None,
-                     big: float = 1e5) -> torch.Tensor:
+                     big: float = 1e5, walk: str = "auto") -> torch.Tensor:
     """K13: one shard's segment of the epipolar target scan, stacked.
 
     cost: (Dl, H, W) f32, plane k holding global disparity d0 + k; d1:
     (H, W) int32 global disparities; sc, ct: the penalty sc * |ct - i| of
     scan step i, or both None; n_local (1 .. Dl): the shard's planes;
-    total_disp: the padded depth.  Returns (3, H, W) f32: c1, c2 and the
-    best global plane's int32 bits (parallel/wta_sharded.py
-    stack_two_min)."""
+    total_disp: the padded depth; walk: "auto" (the segment walk where its
+    grid holds segment_plan's min_grid blocks, else the pixel walk),
+    "segment" or "pixel" (both held to the plain version by the card's
+    tests).  Returns (3, H, W) f32: c1, c2 and the best global plane's
+    int32 bits (parallel/wta_sharded.py stack_two_min)."""
     from ..parallel.wta_sharded import epipolar_partial, stack_two_min
 
     if cost.dim() != 3:
@@ -77,16 +120,23 @@ def epipolar_segment(cost: torch.Tensor, d1: torch.Tensor, d0: int,
     if d0 < 0 or total_disp < 1:
         raise ValueError(f"need d0 >= 0 and total_disp >= 1, got {d0} and "
                          f"{total_disp}")
+    if walk not in WALKS:
+        raise ValueError(f"walk must be one of {list(WALKS)}, got {walk!r}")
     if cost.device.type == "cpu":
         return stack_two_min(epipolar_partial(cost, d1, d0, n_local,
                                               total_disp, sc, ct, big))
     require_cuda(cost, d1, *pen)
+    if H * W >= 2 ** 31:
+        raise ValueError("epipolar_segment: the kernel indexes fewer than "
+                         "2^31 pixels")
+    if H * W:
+        segment_plan(W, n_local, total_disp)
     out = torch.empty((3, H, W), dtype=torch.float32, device=cost.device)
     with torch.cuda.device(cost.device):
-        rc = _lib().epipolar_segment_f32(
+        rc = _lib().epipolar_segment_walk_f32(
             cost.data_ptr(), d1.data_ptr(), _ptr(sc), _ptr(ct),
             out.data_ptr(), Dl, H, W, d0, n_local, total_disp, big,
-            _stream(cost.device))
+            WALKS[walk], _stream(cost.device))
     raise_on_error(rc, "epipolar_segment")
     LAUNCHES["epipolar_segment"] += 1
     return out

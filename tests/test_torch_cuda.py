@@ -36,9 +36,10 @@ from stereo_matchin_tpu_torch.ops.wta_fast import (_diag_two_min_plain,
 from stereo_matchin_tpu_torch.kernels import sad_volume as ks
 from .torch_support import (ARMS_EDGES, OII_EDGES, SAD_EDGES,
                             SHARD_WTA_EDGES, VOTE_EDGES, arms_image,
-                            cuda_device, k4_queued, max_ulp, n, oii_inputs,
-                            outlier_d1, sad_inputs, shard_wta_inputs,
-                            unorm8_pair, vote_inputs)
+                            cuda_device, k4_queued, k12_tiles, k13_plan,
+                            max_ulp, n, oii_inputs, outlier_d1, sad_inputs,
+                            shard_wta_d1, shard_wta_inputs, shifted_d1,
+                            structured_d1, unorm8_pair, vote_inputs)
 
 pytestmark = pytest.mark.cuda
 EPS, BIG = 1e-5, 1e5
@@ -1472,8 +1473,18 @@ def _shard_wta_bit_equal(vols, dl, d_pad, maps, d1_of, penalty=0.085):
     _same_bits(twta.merge_target_step(g_t, ref.c1, ref.c2, d1, BIG, "pallas"),
                twta.merge_target_step(g_t, ref.c1, ref.c2, d1, BIG, "jnp"))
     torch.cuda.synchronize()
-    return {k: kernels.LAUNCHES[k] - before[k]
-            for k in ("epipolar_segment", "shard_merge")}
+    launched = {k: kernels.LAUNCHES[k] - before[k]
+                for k in ("epipolar_segment", "shard_merge")}
+    # Both of K13's walks, whichever the shape takes.
+    from stereo_matchin_tpu_torch.kernels import wta_shard as kws
+
+    sc = twta._scaled(tgt_pen[0], tgt_pen[2])
+    for k, v in enumerate(vols):
+        for walk in ("pixel", "segment"):
+            _same_bits([kws.epipolar_segment(v, d1, k * dl, dl, d_pad, sc,
+                                             tgt_pen[1], BIG, walk)],
+                       segs[k:k + 1])
+    return launched
 
 
 @pytest.mark.parametrize("with_penalty", [False, True])
@@ -1487,10 +1498,7 @@ def test_shard_wta_kernels_bit_equal_to_plain(case, with_penalty):
     dl = d_pad // shards
     vols = [torch.from_numpy(cost[k * dl:(k + 1) * dl]).to(dev)
             for k in range(shards)]
-    rand = torch.from_numpy(rand).to(dev)
-    d1_of = {"argmin": lambda d: d, "zero": torch.zeros_like,
-             "last": lambda d: torch.full_like(d, D - 1),
-             "random": lambda d: rand}[kind]
+    d1_of = shard_wta_d1(kind, D, rand)
     maps = (tuple(torch.from_numpy(m).to(dev) for m in maps)
             if with_penalty else None)
     assert _shard_wta_bit_equal(vols, dl, d_pad, maps, d1_of) == {
@@ -1542,3 +1550,130 @@ def test_shard_wta_wrappers_refuse_bad_arguments():
     with pytest.raises(ValueError, match="contiguous"):
         kws.shard_merge_reference(g.transpose(2, 3).contiguous().transpose(
             2, 3))
+
+
+@pytest.mark.parametrize("d1_kind", ["uniform", "structured", "shifted"])
+@pytest.mark.parametrize("D,shards,H,W", [(280, 1, 3, 2000), (280, 2, 40, 2880),
+                                          (61, 2, 17, 3100), (62, 2, 9, 384)])
+def test_epipolar_segment_staged_ring_bit_equal_to_plain(D, shards, H, W,
+                                                         d1_kind):
+    """K13 where its ring turns over many times: d1 uniform in [0, D) (a
+    block stages nearly every plane of its shard, each window its segment
+    and the spread of d1 before it), a structured d1 (a smooth surface in
+    [0, 40) with about 3 in 32 outliers in [D // 3, D - 1]: planes above
+    the staged range by direct loads) and the shifted pair's (37 with 3 in
+    100 pixels uniform: on the second shard a short queue, several lanes
+    a pixel), one shard of 280 planes, the two shards of config 3 at 2880
+    columns, rows of three segments and the 288x384 frame's shards; with
+    and without the penalty.  Same bits as the plain version."""
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(D + H + W)
+    vols = [torch.rand((D // shards, H, W), generator=gen, device=dev).mul_(
+        30).floor_() for _ in range(shards)]
+    d1 = {"uniform": lambda: torch.randint(0, D, (H, W), generator=gen,
+                                           device=dev, dtype=torch.int32),
+          "structured": lambda: structured_d1(H, W, D, D + W, dev),
+          "shifted": lambda: shifted_d1(H, W, D, D + W, dev,
+                                        min(37, D // 3))}[d1_kind]()
+
+    def ints(hi):
+        return torch.randint(0, hi, (H, W), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    maps = (ints(D) + 0.5 * ints(2), torch.rand((H, W), generator=gen,
+                                                device=dev) * 3,
+            ints(D) + 0.5 * ints(2), torch.rand((H, W), generator=gen,
+                                                device=dev) * 3)
+    for m in (None, maps):
+        assert _shard_wta_bit_equal(vols, D // shards, D, m,
+                                    lambda d: d1) == {
+            "epipolar_segment": shards, "shard_merge": 2}
+
+
+def test_epipolar_segment_refuses_a_ring_that_does_not_fit():
+    """total_disp 6000 on rows of 8000 columns: each ring window may span
+    the whole row (a segment and the 5998 columns before it), and the
+    ring's windows are more than a block's shared memory, so the wrapper
+    raises and runs no other walk; at total_disp 280 the ring fits."""
+    from stereo_matchin_tpu_torch.kernels import wta_shard as kws
+
+    dev = cuda_device()
+    cost = torch.zeros((4, 2, 8000), device=dev)
+    d1 = torch.zeros((2, 8000), dtype=torch.int32, device=dev)
+    before = kernels.LAUNCHES["epipolar_segment"]
+    with pytest.raises(ValueError, match="does not fit"):
+        kws.epipolar_segment(cost, d1, 0, 4, 6000)
+    assert kernels.LAUNCHES["epipolar_segment"] == before
+    kws.epipolar_segment(cost, d1, 0, 4, 280)
+    assert kernels.LAUNCHES["epipolar_segment"] == before + 1
+
+
+@pytest.mark.parametrize("signed_zeros", [False, True])
+@pytest.mark.parametrize("shape", [(1988, 2880, 3), (1025, 4096), (300, 2000, 4),
+                                   (70, 45, 3), (33, 1, 3), (1, 90, 4),
+                                   (2, 129), (67, 300, 1)])
+def test_median3x3_bit_equal_to_plain_at_tile_edges(shape, signed_zeros):
+    """K12's tiles at their edges: 32-row tiles (config 3's image, and a
+    map whose last tile has one row), 16-row tiles of four channels (the
+    generic C), H and W * C off the tile, H = 1, W = 1; on levels, and on
+    levels whose zeros are +0.0 and -0.0 at random (which zero survives
+    an exchange of equal values depends on the operands' order).  Same
+    bits as the plain version."""
+    from stereo_matchin_tpu_torch.kernels import median as km
+
+    dev = cuda_device()
+    H, W = shape[:2]
+    C = shape[2] if len(shape) == 3 else 1
+    ty = km.median_tiles(H, W, C)[1]
+    assert ty == {(1988, 2880, 3): 32, (1025, 4096): 32,
+                  (300, 2000, 4): 16}.get(shape, ty)
+    gen = torch.Generator(device=dev).manual_seed(H + W + C)
+    img = torch.randint(0, 8, shape, generator=gen, device=dev).float() / 7
+    if signed_zeros:
+        neg = torch.rand(shape, generator=gen, device=dev) < 0.5
+        img = torch.where((img == 0) & neg, -0.0, img)
+        assert bool(img.signbit().any())
+    before = kernels.LAUNCHES["median3x3"]
+    got, want = km.median3x3(img), tops.median3x3_plain(img)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert kernels.LAUNCHES["median3x3"] == before + 1
+
+
+@pytest.mark.parametrize("W,n_local,total_disp", [
+    (2880, 140, 280), (384, 31, 62), (3101, 5, 10), (1, 1, 1), (2000, 280, 280),
+    (8000, 4, 6000)])
+def test_segment_plan_is_the_walks(W, n_local, total_disp):
+    """The plan the built K13 reports (kernels/wta_shard.py segment_plan)
+    is the one tests/test_torch_wta_shard_tiles.py walks (k13_plan), and
+    both refuse the same shapes."""
+    from stereo_matchin_tpu_torch.kernels import wta_shard as kws
+
+    cuda_device()
+    try:
+        want = k13_plan(W, n_local, total_disp)
+    except ValueError:
+        with pytest.raises(ValueError, match="does not fit"):
+            kws.segment_plan(W, n_local, total_disp)
+        return
+    want.pop("unroll")
+    want.pop("unroll_pixel")
+    assert kws.segment_plan(W, n_local, total_disp) == want
+
+
+@pytest.mark.parametrize("H,W,C", [(1988, 2880, 3), (1988, 2880, 1),
+                                   (288, 384, 3), (300, 2000, 4), (1, 1, 1),
+                                   (4, 4, 2000)])
+def test_median_tiles_are_the_walks(H, W, C):
+    """The tiles the built K12 reports (kernels/median.py median_tiles) are
+    the ones tests/test_torch_median.py walks (k12_tiles), and both refuse
+    the same shapes."""
+    from stereo_matchin_tpu_torch.kernels import median as km
+
+    cuda_device()
+    try:
+        want = k12_tiles(H, W, C)
+    except ValueError:
+        with pytest.raises(ValueError, match="does not fit"):
+            km.median_tiles(H, W, C)
+        return
+    assert km.median_tiles(H, W, C) == want

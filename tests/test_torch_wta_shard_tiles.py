@@ -1,13 +1,17 @@
 """Kernels K13 (epipolar_segment) and K14 (shard_merge) of the port's
 sharded WTA (kernels/wta_shard.py, csrc/wta_shard.cu) on the CPU.
 
-  * A numpy walk of K13 as the CUDA code indexes it (each pixel's interval
-    of unclamped steps, K13_UNROLL loads at a time, then the clamped tail,
+  * A numpy walk of K13 as the CUDA code schedules it (blocks of a row
+    segment, each pixel's interval of unclamped steps as planes, the
+    block's staged range and windows, then per pixel the planes above it
+    by direct loads, the staged planes, those below, and the clamped tail;
     the sequential tracker, the stacked output with d's int32 bits)
     against parallel/wta_sharded.py epipolar_partial + stack_two_min, bit
     for bit, on every shard of every SHARD_WTA_EDGES case, with and without
     the WTA_REF penalty; the walk visits exactly the steps the plain loop
-    counts.
+    counts, every staged read falls in its window and every window in its
+    ring slot, and chip_smoke.py's counts of its loads, staged and direct
+    floats equal the walk's.
   * A numpy walk of K14's two modes (the folds as the CUDA code indexes the
     gathered (n, 3, H, W) stack, NaN-propagating minimum and maximum, IEEE
     division) against the plain merges, bit for bit, NaN confidences
@@ -41,7 +45,8 @@ from stereo_matchin_tpu_torch import ops as tops
 from stereo_matchin_tpu_torch.config import StereoConfig
 from stereo_matchin_tpu_torch.kernels import wta_shard as ks
 
-from .torch_support import SHARD_WTA_EDGES, n, shard_wta_inputs, t
+from .torch_support import (SHARD_WTA_EDGES, k13_plan, n, shard_wta_d1,
+                            shard_wta_inputs, t)
 
 # The packages export functions named wta_sharded: take the modules.
 jwta = importlib.import_module("stereo_matchin_tpu.parallel.wta_sharded")
@@ -50,7 +55,6 @@ twta = importlib.import_module("stereo_matchin_tpu_torch.parallel.wta_sharded")
 BIG = 1e5
 PENALTY = 0.085
 F32 = np.float32
-K13_UNROLL = 8          # csrc/wta_shard.cu kUnrollK13
 CASES = list(SHARD_WTA_EDGES)
 
 
@@ -72,8 +76,7 @@ def _frame(case, with_penalty, seed=0):
     g = torch.stack([twta.local_two_min(v, *ref_pen, k * dl, BIG, "jnp")
                      for k, v in enumerate(vols)])
     ref = twta.merge_reference_gathered(g, BIG)
-    d1 = {"argmin": ref.d, "zero": torch.zeros_like(ref.d),
-          "last": torch.full_like(ref.d, D - 1), "random": t(rand)}[kind]
+    d1 = shard_wta_d1(kind, D, rand)(ref.d)
     return vols, dl, d_pad, tgt_pen, g, ref, d1
 
 
@@ -100,70 +103,163 @@ def _torch_max(a, b):
     return b if b > a else a
 
 
-def k13_walk(cost, d1, d0, n_local, total_disp, sc, ct, big):
-    """K13 as csrc/wta_shard.cu indexes it, one pixel p = y * W + x at a
-    time: the unclamped steps i in [lo, hi] read flat[(d1 - i - d0) * HW +
-    (p - x) + (x - i)], K13_UNROLL of them loaded before any is compared;
-    then the tail's base at column 0, each step i in [x + 1, imax - 1] with
-    its own penalty.  Returns ((3, H, W) f32 output as the kernel writes
-    it, the steps walked per pixel, the floats loaded in all)."""
+def k13_walk(cost, d1, d0, n_local, total_disp, sc, ct, big,
+             walk="segment"):
+    """K13 as csrc/wta_shard.cu schedules it (tests/torch_support.py
+    k13_plan, the kernel's plan).  The segment walk: block (y, s) owns
+    columns [x0, x1) of row y; each pixel's unclamped steps are the planes
+    [klo, khi] (step i = d1 - d0 - kl reads column x - i of plane kl); the
+    block stages the planes [ka, kb] whose coverage reaches 1 / share of
+    its columns, each in the window [max(lowc, umin + kl), min(x1 - 1,
+    umax + kl)] of the row (umin, umax: the column offsets x - d1 + d0 of
+    the pixels that walk a staged plane), and each pixel walks the planes
+    above kb through the kernel's queue (by direct loads, `unroll` planes
+    a chunk from the queue's top plane down; where no plane is staged and
+    at most 32 pixels are active, each from its own top plane, buffered in
+    the free ring while the walkers' planes fit it), kb .. ka
+    from the staged windows (every read inside its window), those below ka
+    by direct loads (the queue again), then its clamped tail (the base at
+    column 0, each step i in [x + 1, imax - 1] with its own penalty).  The
+    pixel walk: each pixel its planes khi .. klo by direct loads,
+    `unroll_pixel` a chunk, then its tail.  Returns ((3, H, W) f32 output
+    as the kernel writes it, the steps walked per pixel, and the counts:
+    "loads" (a float per unclamped step and per tail, the bound's),
+    "steps", "staged" (floats copied into windows), "direct" (floats
+    loaded directly: the planes outside [ka, kb] and the tails' bases),
+    "buffered" (of those, copied into a free ring first), "above" and
+    "below" (pixels that walk planes above kb, below ka), "past_ring"
+    (pixels of a block with no staged plane whose planes no longer fit its
+    free ring))."""
     Dl, H, W = cost.shape
     HW = H * W
     flat = np.ascontiguousarray(cost, F32).reshape(-1)
-    d1f = np.ascontiguousarray(d1).reshape(-1)
-    scf = None if sc is None else np.ascontiguousarray(sc, F32).reshape(-1)
-    ctf = None if ct is None else np.ascontiguousarray(ct, F32).reshape(-1)
-    out = np.empty(3 * HW, F32)
-    steps = np.zeros(HW, np.int64)
-    loads_in_all = 0
+    d1 = np.ascontiguousarray(d1)
+    scf = None if sc is None else np.ascontiguousarray(sc, F32)
+    ctf = None if ct is None else np.ascontiguousarray(ct, F32)
+    out = np.empty((3, H, W), F32)
+    steps = np.zeros((H, W), np.int64)
+    counts = dict.fromkeys(("loads", "steps", "staged", "direct",
+                            "buffered", "above", "below", "past_ring"), 0)
+    if HW == 0:
+        return out, steps, counts
+    plan = k13_plan(W, n_local, total_disp)
+    seg, n_seg = plan["seg"], plan["n_seg"]
+    if walk == "pixel":                 # one block: the whole row
+        seg, n_seg = W, 1
+    for y, s in np.ndindex(H, n_seg):
+        x0, x1 = s * seg, min(W, (s + 1) * seg)
+        assert x1 > x0
+        cov = np.zeros(n_local + 1, np.int64)
+        pix = []
+        for x in range(x0, x1):
+            d = int(d1[y, x])
+            imax = min(d, total_disp - 1)
+            lo = max(0, d - d0 - n_local + 1)
+            hi = min(x, d - d0, imax - 1)
+            klo, khi = (d - d0 - hi, d - d0 - lo) if hi >= lo else (0, -1)
+            if hi >= lo:
+                cov[klo] += 1
+                cov[khi + 1] -= 1
+                counts["loads"] += khi - klo + 1
+            pix.append({"x": x, "d": d, "klo": klo, "khi": khi, "c1": F32(big),
+                        "c2": F32(big), "best": d})
 
-    def pen(v, p, i):
-        if scf is None:
-            return v
-        return F32(v + F32(scf[p] * F32(abs(F32(ctf[p] - F32(i))))))
-
-    for p in range(HW):
-        x = p % W
-        row = p - x
-        dd = int(d1f[p])
-        imax = min(dd, total_disp - 1)
-        c1 = c2 = F32(big)
-        best = dd
-
-        def track(v, b):
-            nonlocal c1, c2, best
-            if v < c1:
-                c2, c1, best = c1, v, b
+        def track(p, kl, v, i):
+            """Step i of pixel p at local plane kl."""
+            if scf is not None:
+                v = F32(v + F32(scf[y, p["x"]] * F32(abs(F32(
+                    ctf[y, p["x"]] - F32(i))))))
+            if v < p["c1"]:
+                p["c2"], p["c1"], p["best"] = p["c1"], v, kl + d0
             else:
-                c2 = _torch_min(c2, v)
+                p["c2"] = _torch_min(p["c2"], v)
+            steps[y, p["x"]] += 1
 
-        lo = max(0, dd - d0 - n_local + 1)
-        hi = min(x, dd - d0, imax - 1)
-        i = lo
-        while i <= hi:
-            loads = []
-            for u in range(K13_UNROLL):
-                j = i + u
-                if j <= hi:
-                    plane = dd - j - d0
-                    assert 0 <= plane < n_local and 0 <= x - j < W
-                    loads.append(flat[plane * HW + row + (x - j)])
-            loads_in_all += len(loads)
-            for u, v in enumerate(loads):
-                track(pen(v, p, i + u), dd - (i + u))
-                steps[p] += 1
-            i += K13_UNROLL
-        bt = dd - x
-        btl = bt - d0
-        if x + 1 < imax and 0 <= btl < n_local:
-            base = flat[btl * HW + row]
-            loads_in_all += 1
-            for i in range(x + 1, imax):
-                track(pen(base, p, i), bt)
-                steps[p] += 1
-        out[p], out[HW + p] = c1, c2
-        out[2 * HW + p] = np.array(best, np.int32).view(F32)
-    return out.reshape(3, H, W), steps.reshape(H, W), loads_in_all
+        def direct(p, khigh, klow, top, unroll):
+            """Planes khigh .. klow by direct loads, `unroll` a chunk from
+            top down: every plane loaded once, tracked in descending
+            order."""
+            loaded = []
+            for k in range(top, klow - 1, -unroll):
+                loaded += [kl for kl in range(k, k - unroll, -1)
+                           if klow <= kl <= khigh]
+            assert loaded == list(range(khigh, klow - 1, -1))
+            for kl in loaded:
+                col = p["x"] - p["d"] + d0 + kl
+                assert 0 <= col < W and 0 <= kl < n_local
+                counts["direct"] += 1
+                track(p, kl, flat[kl * HW + y * W + col],
+                      p["d"] - d0 - kl)
+
+        if walk == "pixel":
+            ka, kb = 0, -1
+            for p in pix:
+                if p["khi"] >= p["klo"]:
+                    direct(p, p["khi"], p["klo"], p["khi"],
+                           plan["unroll_pixel"])
+        else:
+            run = np.cumsum(cov[:n_local])
+            ok = np.flatnonzero((run > 0)
+                                & (run * plan["share"] >= x1 - x0))
+            ka, kb = (int(ok[0]), int(ok[-1])) if ok.size else (0, -1)
+            us = [p["x"] - p["d"] + d0 for p in pix
+                  if p["khi"] >= ka and p["klo"] <= kb]
+            lowc, highc = max(0, x0 - max(total_disp - 2, 0)), x1 - 1
+            windows = {}
+            for kl in range(kb, ka - 1, -1):
+                ws, we = max(lowc, min(us) + kl), min(highc, max(us) + kl)
+                # The window and its 16-byte phase fit a ring slot.
+                assert we - ws + 1 + 3 <= plan["slot"]
+                windows[kl] = (ws, we, flat[kl * HW + y * W + max(ws, 0):]
+                               [:max(we - ws + 1, 0)])
+                counts["staged"] += max(we - ws + 1, 0)
+            above = [p for p in pix if p["khi"] > kb]
+            top = max((p["khi"] for p in above), default=-1)
+            # A sparse block (no plane staged, a warp of active pixels or
+            # fewer) walks each from its free ring while their planes fit.
+            free = (plan["ring"] * plan["slot"] if kb < ka and len(above)
+                    <= 32 else 0)
+            for p in above:             # 1. above the staged range
+                counts["above"] += 1
+                klow = max(p["klo"], kb + 1)
+                n_planes = p["khi"] - klow + 1
+                if n_planes <= free:    # buffered
+                    free -= n_planes
+                    counts["buffered"] += n_planes
+                    direct(p, p["khi"], klow, p["khi"], n_planes)
+                elif kb < ka and len(above) <= 32:
+                    counts["past_ring"] += 1
+                    direct(p, p["khi"], klow, p["khi"], plan["unroll"])
+                else:
+                    direct(p, p["khi"], klow, top, plan["unroll"])
+            for kl in range(kb, ka - 1, -1):    # 2. staged, in lockstep
+                ws, we, win = windows[kl]
+                for p in pix:
+                    if p["klo"] <= kl <= p["khi"]:
+                        col = p["x"] - p["d"] + d0 + kl
+                        assert ws <= col <= we
+                        track(p, kl, win[col - ws], p["d"] - d0 - kl)
+            below = [p for p in pix
+                     if p["klo"] < ka and p["khi"] >= p["klo"]]
+            top = max((min(p["khi"], ka - 1) for p in below), default=-1)
+            for p in below:             # 3. below the staged range
+                counts["below"] += 1
+                direct(p, min(p["khi"], ka - 1), p["klo"], top,
+                       plan["unroll"])
+        for p in pix:                   # 4. the clamped tail
+            x, d = p["x"], p["d"]
+            imax = min(d, total_disp - 1)
+            bt = d - x
+            if x + 1 < imax and 0 <= bt - d0 < n_local:
+                base = flat[(bt - d0) * HW + y * W]
+                counts["loads"] += 1
+                counts["direct"] += 1
+                for i in range(x + 1, imax):
+                    track(p, bt - d0, base, i)
+            out[0, y, x], out[1, y, x] = p["c1"], p["c2"]
+            out[2, y, x] = np.array(p["best"], np.int32).view(F32)
+    counts["steps"] = int(steps.sum())
+    return out, steps, counts
 
 
 def _counted_steps(d1, d0, n_local, total_disp, W):
@@ -176,9 +272,10 @@ def _counted_steps(d1, d0, n_local, total_disp, W):
     return total.numpy()
 
 
+@pytest.mark.parametrize("walk", ["segment", "pixel"])
 @pytest.mark.parametrize("with_penalty", [False, True])
 @pytest.mark.parametrize("case", CASES)
-def test_segment_walk_equals_epipolar_partial(case, with_penalty):
+def test_segment_walk_equals_epipolar_partial(case, with_penalty, walk):
     vols, dl, d_pad, pen, _, _, d1 = _frame(case, with_penalty)
     sc = None if pen[0] is None else pen[2] * pen[0]
     W = d1.shape[1]
@@ -186,17 +283,23 @@ def test_segment_walk_equals_epipolar_partial(case, with_penalty):
     for k, v in enumerate(vols):
         want = twta.stack_two_min(twta.epipolar_partial(
             v, d1, k * dl, dl, d_pad, sc, pen[1], BIG))
-        got, steps, loads = k13_walk(n(v), n(d1), k * dl, dl, d_pad,
-                                     None if sc is None else n(sc),
-                                     None if pen[1] is None else n(pen[1]),
-                                     BIG)
+        got, steps, counts = k13_walk(n(v), n(d1), k * dl, dl, d_pad,
+                                      None if sc is None else n(sc),
+                                      None if pen[1] is None else n(pen[1]),
+                                      BIG, walk)
         np.testing.assert_array_equal(got.view(np.int32), _bits(want),
                                       err_msg=f"shard {k}")
         np.testing.assert_array_equal(
             steps, _counted_steps(d1, k * dl, dl, d_pad, W))
-        # The smoke's bound counts these loads and steps.
-        assert chip_smoke.segment_walk(d1, k * dl, dl, d_pad) == (
-            loads, int(steps.sum()))
+        # The smoke's bound counts these loads and steps, and the floats
+        # the segment walk stages and loads directly.
+        if walk == "segment":
+            assert chip_smoke.segment_walk(
+                    d1, k * dl, dl, d_pad, k13_plan(W, dl, d_pad)) == {
+                key: counts[key] for key in ("loads", "steps", "staged",
+                                             "direct")}
+        else:
+            assert counts["direct"] == counts["loads"]
         walked += int(steps.sum())
         # The step's route on the CPU is the same plain version.
         step = twta.epipolar_segment(v, d1, k * dl, dl, d_pad, *pen, BIG)
@@ -208,7 +311,8 @@ def test_segment_walk_equals_epipolar_partial(case, with_penalty):
 def test_segment_edges_reach_the_cases_they_name():
     """The edge frames hold what SHARD_WTA_EDGES says: long clamped tails
     (x < d1), pixels whose diagonal misses a shard, pad planes at big,
-    one plane a shard, and both NaN confidences of 0 / 0."""
+    one plane a shard, both NaN confidences of 0 / 0, and the cases of
+    K13's schedule."""
     vols, dl, d_pad, _, _, _, d1 = _frame("d1_last_narrow", False)
     xs = torch.arange(d1.shape[1])[None, :]
     assert bool((d1 > xs).all()) and dl > 1
@@ -218,6 +322,53 @@ def test_segment_edges_reach_the_cases_they_name():
     res = _merged("d1_last_narrow", False, seed_with_ref=False)[2]
     assert bool(res.conf_target.isnan().any())
     assert bool(_merged("one_shard", False)[2].conf_ref.isnan().any())
+    # K13's schedule: segments of a row, the last one ragged; every
+    # pixel walking a tail; outliers above and below the staged range.
+    W = SHARD_WTA_EDGES["row_past_a_segment"][3]
+    plan = k13_plan(W, 5, 10)
+    assert plan["n_seg"] >= 2 and W % plan["seg"] != 0
+    vols, dl, d_pad, _, _, _, d1 = _frame("all_tail", False)
+    xs = torch.arange(d1.shape[1])[None, :]
+    imax = d1.clamp(max=d_pad - 1)
+    assert bool((xs + 1 < imax).all())
+    vols, dl, d_pad, _, _, _, d1 = _frame("outliers_above_and_below", False)
+    counts = k13_walk(n(vols[0]), n(d1), 0, dl, d_pad, None, None, BIG)[2]
+    assert counts["above"] > 0 and counts["below"] > 0 and counts["staged"]
+    # A block with no staged plane buffers its queue in the free ring.
+    vols, dl, d_pad, _, _, _, d1 = _frame("sparse_second_shard", False)
+    counts = k13_walk(n(vols[1]), n(d1), dl, dl, d_pad, None, None, BIG)[2]
+    assert counts["buffered"] > 0 and counts["staged"] == 0
+    assert counts["past_ring"] > 0
+
+
+@pytest.mark.parametrize("W,n_local,total_disp,want", [
+    (2880, 140, 280, (2, 1440, 1724)),      # a config-3 shard
+    (384, 31, 62, (1, 384, 388)),           # a 288x384 shard
+    (3101, 5, 10, (3, 1034, 1048)),         # a ragged last segment
+    (1, 1, 1, (1, 1, 4)),
+])
+def test_segment_plan_sizes_the_ring(W, n_local, total_disp, want):
+    """The walk's plan (csrc/wta_shard.cu's; tests/test_torch_cuda.py holds
+    it to the built kernel's): equal segments of at most threads * pix
+    columns, a slot for the widest window (the segment and the total_disp
+    - 2 columns before it, within the row) and its 16-byte phase, rounded
+    to 16 bytes; the ring, the queue and the coverage counts."""
+    plan = k13_plan(W, n_local, total_disp)
+    assert (plan["n_seg"], plan["seg"], plan["slot"]) == want
+    assert plan["smem"] == (plan["ring"] * want[2] + 4 * want[1] + n_local
+                            + 11) * 4
+    assert plan["seg"] <= plan["threads"] * plan["pix"]
+    assert plan["slot"] % 4 == 0
+
+
+@pytest.mark.parametrize("W,n_local,total_disp", [(8000, 4, 6000),
+                                                  (100, 60000, 10)])
+def test_segment_plan_refuses_a_ring_that_does_not_fit(W, n_local,
+                                                       total_disp):
+    """Windows of 8000 columns, or 60000 planes' counts, are more than a
+    block's shared memory: refused (the wrapper raises on the card)."""
+    with pytest.raises(ValueError, match="does not fit"):
+        k13_plan(W, n_local, total_disp)
 
 
 # --- K14 ---------------------------------------------------------------------
@@ -408,6 +559,8 @@ def test_wrappers_refuse_bad_inputs():
         ks.epipolar_segment(v, d1, 0, dl, d_pad, pen[0], None)
     with pytest.raises(ValueError):
         ks.epipolar_segment(v, d1[:, 1:], 0, dl, d_pad)
+    with pytest.raises(ValueError, match="walk"):
+        ks.epipolar_segment(v, d1, 0, dl, d_pad, walk="diagonal")
     with pytest.raises(ValueError, match="gathered"):
         ks.shard_merge_reference(g[:, :2])
     with pytest.raises(ValueError, match="gathered"):

@@ -7,6 +7,10 @@ are built for each side from the same keywords (`config_pair`).
 
 from __future__ import annotations
 
+import functools
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -259,17 +263,82 @@ def arms_image(rng, H: int, W: int, kind: str) -> np.ndarray:
     return np.ascontiguousarray(img, dtype=np.float32)
 
 
+CSRC = pathlib.Path(__file__).resolve().parents[1] / (
+    "stereo_matchin_tpu_torch/csrc")
+
+
+@functools.cache
+def csrc_constants(source: str) -> dict:
+    """The `constexpr int kName = expression;` constants of csrc/<source>,
+    evaluated in order: the kernels' plans, for the numpy walks of their
+    schedules (the card's tests hold these walks' plans to the ones the
+    built kernels report)."""
+    consts = {}
+    text = (CSRC / source).read_text()
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", text):
+        consts[name] = int(eval(expr, {"__builtins__": {}}, consts))
+    return consts
+
+
+def k13_plan(W: int, n_local: int, total_disp: int) -> dict:
+    """csrc/wta_shard.cu epipolar_segment_plan for the numpy walk, with the
+    keys of kernels/wta_shard.py segment_plan, and "unroll" and
+    "unroll_pixel" (loads in flight a lane in the segment walk's queue and
+    in the pixel walk).  Raises ValueError where the block does not
+    fit."""
+    k = csrc_constants("wta_shard.cu")
+    n_seg = -(-W // k["kSegK13"])
+    seg = -(-W // n_seg)
+    span = min(W, seg + max(total_disp - 2, 0))
+    slot = (span + 6) // 4 * 4
+    smem = (k["kRingK13"] * slot + 4 * seg + n_local + 11) * 4
+    if smem > k["kSmemMaxK13"] or n_seg > 65535:
+        raise ValueError(f"epipolar_segment: {smem} bytes does not fit")
+    return {"threads": k["kThreadsK13"], "pix": k["kPixK13"],
+            "ring": k["kRingK13"], "share": k["kShareK13"], "n_seg": n_seg,
+            "seg": seg, "slot": slot, "smem": smem,
+            "min_grid": k["kMinGridK13"], "unroll": k["kUnrollK13"],
+            "unroll_pixel": k["kUnrollPixK13"]}
+
+
+def k12_tiles(H: int, W: int, C: int, blocks: int | None = None):
+    """csrc/median.cu median3x3_plan for the numpy walk: (threads, ty, gx,
+    gy), ty the tallest of kTyMaxK12, kTyMaxK12 / 2, ..., kTyMinK12 that
+    gives the grid `blocks` blocks (the kernel's kBlocksK12) and a tile
+    that fits.  Raises ValueError where none fits."""
+    k = csrc_constants("median.cu")
+    threads = k["kThreadsK12"]
+    blocks = k["kBlocksK12"] if blocks is None else blocks
+    row = (threads + 2 * C) * 4
+    gx = -(-W * C // threads)
+    ty = k["kTyMaxK12"]
+    while ty > k["kTyMinK12"] and (gx * -(-H // ty) < blocks
+                                   or (ty + 2) * row > k["kSmemMaxK12"]):
+        ty //= 2
+    if (ty + 2) * row > k["kSmemMaxK12"]:
+        raise ValueError(f"median3x3: a tile of {C} channels does not fit")
+    return threads, ty, gx, -(-H // ty)
+
+
 # Edge shapes of the sharded WTA's kernels K13 (epipolar_segment) and K14
 # (shard_merge), name -> (D, shards, H, W, d1): D real planes padded with
 # `big` planes up to a multiple of the shards (the pad planes of the last
 # shard or shards, as parallel/asw_sharded.py pins them); d1 the target
 # scan's: "argmin" (the merged reference's, as the pipeline hands it on),
-# "zero", "last" (D - 1), "random" (uniform in [0, D)).  One shard; two,
-# three and five shards with pad planes; one plane a shard (Dl = 1), also
-# with a last shard of pad planes only; d1 = 0; d1 = D - 1 on a frame
-# narrower than D (every pixel has x < d1: long clamped tails, diagonals
-# that miss the first shards); a row past one block of either kernel with
-# H * W odd.
+# "zero", "last" (D - 1), "random" (uniform in [0, D)), "outliers" (D - 6
+# with about 1 in 11 pixels at D - 1 and 1 in 13 at 2), "sparse" (3 with
+# about 1 in 5 pixels in [D // 2, D); shard_wta_d1).  One
+# shard; two, three and five shards with pad planes; one plane a shard
+# (Dl = 1), also with a last shard of pad planes only; d1 = 0; d1 = D - 1
+# on a frame narrower than D (every pixel has x < d1: long clamped tails,
+# diagonals that miss the first shards), also on one shard (every pixel
+# walks a tail); a row past one block of K14 with H * W odd; a row wider
+# than one K13 segment (csrc/wta_shard.cu kSegK13) with a ragged last
+# segment; a band of d1 on a frame narrower than it, whose few outliers
+# walk planes above and below K13's staged range; d1 = 3 with 1 in 5
+# pixels in the second of two shards ("sparse"), whose blocks stage no
+# plane there and buffer their queues in the free ring, one row's past
+# what the ring holds.
 SHARD_WTA_EDGES = {
     "one_shard": (13, 1, 6, 40, "argmin"),
     "two_shards_padded": (13, 2, 6, 40, "argmin"),
@@ -280,7 +349,57 @@ SHARD_WTA_EDGES = {
     "d1_zero": (13, 2, 5, 30, "zero"),
     "d1_last_narrow": (31, 3, 4, 9, "last"),
     "wide_ragged": (9, 2, 3, 301, "argmin"),
+    "all_tail": (64, 1, 3, 20, "last"),
+    "row_past_a_segment": (9, 2, 2, 3101, "random"),
+    "outliers_above_and_below": (40, 1, 4, 30, "outliers"),
+    "outliers_two_shards": (40, 2, 3, 70, "outliers"),
+    "sparse_second_shard": (356, 2, 3, 80, "sparse"),
 }
+
+
+def shard_wta_d1(kind: str, D: int, rand: np.ndarray):
+    """The target scan's d1 of a SHARD_WTA_EDGES kind, as a function of the
+    merged reference's d (a torch int32 tensor): that d ("argmin"), or a
+    map on its device made from the case's uniform `rand`."""
+    rand = np.asarray(rand)
+    fixed = {"zero": np.zeros_like(rand), "last": np.full_like(rand, D - 1),
+             "random": rand,
+             "outliers": np.where(rand % 11 == 0, D - 1,
+                                  np.where(rand % 13 == 1, 2, D - 6)),
+             "sparse": np.where(rand % 5 == 0, D // 2 + rand % (D - D // 2),
+                                3)}
+    if kind == "argmin":
+        return lambda d: d
+    arr = np.ascontiguousarray(fixed[kind], dtype=np.int32)
+    return lambda d: torch.from_numpy(arr).to(d.device)
+
+
+def structured_d1(H: int, W: int, D: int, seed: int, device) -> torch.Tensor:
+    """A structured target-scan d1 on `device`: a smooth surface in [0, 40)
+    with about 3 in 32 pixels at outliers uniform in [D // 3, D - 1], as
+    chip_smoke.py wta_edge_inputs' "outliers" are for K4."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ys = torch.arange(H, device=device, dtype=torch.float32)[:, None]
+    xs = torch.arange(W, device=device, dtype=torch.float32)[None, :]
+    smooth = (19.5 + 19.5 * torch.sin(xs / 211.0 + ys / 157.0)).floor()
+    smooth = smooth.clamp(0, 39).to(torch.int32)
+    out = torch.rand((H, W), generator=gen, device=device) < 3 / 32
+    high = torch.randint(D // 3, D, (H, W), generator=gen, device=device,
+                         dtype=torch.int32)
+    return torch.where(out, high, smooth)
+
+
+def shifted_d1(H: int, W: int, D: int, seed: int, device,
+               shift: int = 37) -> torch.Tensor:
+    """The target-scan d1 of a pair shifted by `shift` columns (chip_smoke.py
+    config3_pair) on `device`: `shift` with about 3 in 100 pixels uniform
+    in [0, D), so that a disp shard past the shift sees only those few
+    pixels' walks."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    stray = torch.rand((H, W), generator=gen, device=device) < 0.03
+    rand = torch.randint(0, D, (H, W), generator=gen, device=device,
+                         dtype=torch.int32)
+    return torch.where(stray, rand, torch.full_like(rand, shift))
 
 
 def shard_wta_inputs(rng, D: int, shards: int, H: int, W: int,
