@@ -97,6 +97,7 @@ result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import importlib.util
 import itertools
 import json
@@ -3076,8 +3077,8 @@ def memory_of(fn, kernels):
     and after): `peak_allocated` (tensors; blind to blocks freed back into
     a graph's pool during its capture), `peak_reserved` (every segment, the
     graphs' pools included) and `held` (the drop of the card's free memory
-    across the call, its result still held; net of any graph the call
-    evicted)."""
+    across the call, its result still held; net of any graphs the call
+    dropped)."""
     import torch
 
     torch.cuda.synchronize()
@@ -3104,16 +3105,17 @@ def captured_against_eager(label, entry, eager, cfg, pairs, kernels, graphs):
     and memory, and the eager frame's memory (memory_of)."""
     import torch
 
-    # The first call's own eviction for the count, done before its memory
-    # is read, so that the reading is the new graph's alone.
-    graphs.CACHE.evict_to(graphs.MAX_GRAPHS - 1)
+    # The frames dropped before the first call, so that its memory (its
+    # warm-up and capture in the frames' pool) is the new graph's alone.
+    graphs.CACHE.clear()
     held, stats = None, None
     for k, (left, right) in enumerate(pairs):
         got, ms, mem, launches = memory_of(lambda: entry(left, right, cfg),
                                            kernels)
         if k == 0:
-            stats = dict(list(graphs.CACHE.frames.values())[-1].stats,
-                         first_call_s=ms / 1e3, **{
+            (frame,) = graphs.CACHE.graphs.values()
+            stats = dict(frame.stats, first_call_s=ms / 1e3,
+                         pool_bytes=graphs.CACHE.stats()["pool_bytes"], **{
                              f"first_call_{m}_bytes": v
                              for m, v in mem.items()})
         want, _, eager_mem, eager_launches = memory_of(
@@ -3278,8 +3280,8 @@ def graph_phase(cfg, kernels, left, right, smi):
             del vol
         report[label] = rep
         del pairs
-    print(" (d) first calls under memory pressure: config-3-size frames of "
-          "four sizes in turn, results held")
+    print(" (d) config-3-size frames of four sizes in turn, results held, "
+          "and the first size again")
     extra["large_sizes"] = large_sizes(cfg, kernels, graphs, smi)
     print(" (e) mixed sizes: KITTI 2015's four image sizes, both methods, "
           "from an empty cache")
@@ -3301,13 +3303,31 @@ LARGE_HW = [(1988, 2880), (2000, 2964), (1920, 2820), (1940, 2960)]
 KITTI_HW = [(375, 1242), (370, 1224), (374, 1238), (376, 1241)]
 
 
+@contextlib.contextmanager
+def first_calls(graphs):
+    """The signatures of the frame cache's first calls while it is open."""
+    seen = []
+    first_call = graphs.CACHE.first_call
+
+    def counted(fn, tensors, statics, dev):
+        seen.append(graphs.signature(fn, tensors, statics))
+        return first_call(fn, tensors, statics, dev)
+
+    graphs.CACHE.first_call = counted
+    try:
+        yield seen
+    finally:
+        del graphs.CACHE.first_call
+
+
 def large_sizes(cfg, kernels, graphs, smi):
     """(d) `run --method asw` over the sizes LARGE_HW and the first one
     again, then `--method both` over LARGE_HW, at d_max 279 (ASW with
-    aggr_d_chunks 4): every call a first call, the previous pair's results
-    held through it, each new signature's warm-up and capture beside up to
-    MAX_GRAPHS graphs of about 20 GB.  No call may run out of memory; the
-    last pair's maps are held against the eager chains'."""
+    aggr_d_chunks 4), from an empty cache: each new size a first call, the
+    previous pair's results held through it, each warm-up and capture in
+    the frames' one pool (its bytes printed after each call); the first
+    size again must be a replay.  No call may run out of memory;
+    the last pair's maps are held against the eager chains'."""
     import torch
 
     from stereo_matchin_tpu_torch.models import asw, cross_based
@@ -3327,21 +3347,28 @@ def large_sizes(cfg, kernels, graphs, smi):
             pair = config3_pair(40 + k, hw)
             out = []
             for name, entry, _, c in entries:
-                res, ms = timed(lambda: entry(*pair, c))
+                with first_calls(graphs) as seen:
+                    res, ms = timed(lambda: entry(*pair, c))
                 out.append(res)
                 free, total = torch.cuda.mem_get_info()
                 rows.append({"hw": hw, "method": name, "s": ms / 1e3,
-                             "graphs": len(graphs.CACHE.frames),
-                             "footprints_gb": sum(
-                                 f.footprint for f in
-                                 graphs.CACHE.frames.values()) / 1e9,
-                             "free_gb": free / 1e9})
+                             "first_call": bool(seen),
+                             "graphs": len(graphs.CACHE.graphs),
+                             "pool_gb": graphs.CACHE.stats()["pool_bytes"]
+                             / 1e9, "free_gb": free / 1e9})
                 print(f"  --method {method}, {hw[0]}x{hw[1]} {name}: "
-                      f"{ms / 1e3:.3f} s, {rows[-1]['graphs']} graphs "
-                      f"held ({rows[-1]['footprints_gb']:.3f} GB of pools "
-                      f"and clones), {free / 1e9:.3f} of {total / 1e9:.3f} "
-                      f"GB free after it; {smi}")
+                      f"{ms / 1e3:.3f} s, "
+                      f"{'a first call' if seen else 'a replay'}, "
+                      f"{rows[-1]['graphs']} graphs held, frame pool "
+                      f"{rows[-1]['pool_gb']:.3f} GB, {free / 1e9:.3f} of "
+                      f"{total / 1e9:.3f} GB free after it; {smi}")
+                if bool(seen) != (k < len(LARGE_HW)):
+                    raise AssertionError(
+                        f"large sizes, --method {method}: call {k + 1} "
+                        f"({hw}, {name}) was "
+                        f"{'a first call' if seen else 'a replay'}")
             held = out                   # the previous pair's results go
+        pool = graphs.CACHE.stats()["pool_bytes"]
         graphs.clear_caches()
         for (name, _, eager, c), got in zip(entries, held):
             want = eager(*pair, c)
@@ -3352,22 +3379,24 @@ def large_sizes(cfg, kernels, graphs, smi):
                                          f"chain's")
             del want
         del held, out, pair
-        report[method] = rows
-        print(f"  --method {method}: no call ran out of memory; the last "
-              f"pair's maps equal the eager chains'")
+        report[method] = {"calls": rows, "frame_pool_bytes": pool}
+        print(f"  --method {method}: no call ran out of memory; the frame "
+              f"pool holds {pool / 1e9:.3f} GB after {len(sizes)} calls of "
+              f"{len(LARGE_HW)} sizes; the last pair's maps equal the eager "
+              f"chains'; {smi}")
     return report
 
 
 def mixed_sizes(cfg, graphs, smi):
     """(e) Eight pairs of KITTI_HW's sizes at d_max 63, each through ASW and
     then cross as `run --method both` calls them, in two orders: sizes in
-    turn (eight signatures through a cache of MAX_GRAPHS) and in blocks
-    (a size's two pairs in a row).  Each run starts from an empty cache,
-    as a new `run` process does (kernels loaded); captured beside eager in
-    the turns eager, captured, captured with a cache of 8, captured, eager;
-    every map bit-equal between them.  Reports seconds a run, first calls
-    (misses) a run, and the first pair's seconds: a `run` of a single
-    pair."""
+    turn and in blocks (a size's two pairs in a row).  Each run starts from
+    an empty cache, as a new `run` process does (kernels loaded); captured
+    beside eager in the turns eager, captured, captured, eager; every map
+    bit-equal between them, and each captured run's first calls exactly
+    its distinct signatures (8: each size and method once).  Reports
+    seconds a run, first calls a run, the frame pool's bytes after a run,
+    and the first pair's seconds: a `run` of a single pair."""
     import torch
 
     from stereo_matchin_tpu_torch.models import asw, cross_based
@@ -3377,32 +3406,19 @@ def mixed_sizes(cfg, graphs, smi):
     pairs = {hw: [random_pair(rng, *hw) for _ in range(2)] for hw in KITTI_HW}
     orders = {"in turn": [(hw, i) for i in range(2) for hw in KITTI_HW],
               "in blocks": [(hw, i) for hw in KITTI_HW for i in range(2)]}
-    captured = (asw.asw_pipeline, cross_based.cross_pipeline)
-    entries = {"captured": captured, "captured, 8 graphs": captured,
+    entries = {"captured": (asw.asw_pipeline, cross_based.cross_pipeline),
                "eager": (asw.asw_pipeline_impl,
                          cross_based.cross_pipeline_impl)}
-    cap = graphs.MAX_GRAPHS
-    misses = []
-    cache_first_call = graphs.CACHE.first_call
-
-    def counted_first_call(*args):
-        misses.append(args[0])
-        return cache_first_call(*args)
-
     report = {}
-    graphs.CACHE.first_call = counted_first_call
-    try:
-        for order, seq in orders.items():
-            rep = {m: {"s": [], "first_pair_s": [], "first_calls": []}
-                   for m in entries}
-            want = None
-            for mode in ("eager", "captured", "captured, 8 graphs",
-                         "captured", "eager"):
-                graphs.clear_caches()
-                graphs.MAX_GRAPHS = 8 if mode.endswith("8 graphs") else cap
-                misses.clear()
-                a_fn, c_fn = entries[mode]
-                maps, secs = [], []
+    for order, seq in orders.items():
+        rep = {m: {"s": [], "first_pair_s": [], "first_calls": [],
+                   "pool_bytes": []} for m in entries}
+        want = None
+        for mode in ("eager", "captured", "captured", "eager"):
+            graphs.clear_caches()
+            a_fn, c_fn = entries[mode]
+            maps, secs = [], []
+            with first_calls(graphs) as seen:
                 for hw, i in seq:
                     left, right = pairs[hw][i]
                     got, ms = timed(lambda: (
@@ -3410,30 +3426,31 @@ def mixed_sizes(cfg, graphs, smi):
                         c_fn(left, right, c).final))
                     maps.append(got)
                     secs.append(ms / 1e3)
-                want = want or maps
-                if not all(torch.equal(g, w) for gm, wm in zip(maps, want)
-                           for g, w in zip(gm, wm)):
-                    raise AssertionError(f"mixed sizes {order}: the {mode} "
-                                         f"maps differ from the eager ones")
-                rep[mode]["s"].append(sum(secs))
-                rep[mode]["first_pair_s"].append(secs[0])
-                rep[mode]["first_calls"].append(len(misses))
-            report[order] = rep
-            print(f"  {order}: {len(seq)} pairs, both methods: captured "
-                  f"{', '.join(f'{x:.3f}' for x in rep['captured']['s'])} s "
-                  f"with {rep['captured']['first_calls']} first calls of "
-                  f"{2 * len(seq)} (a cache of 8: "
-                  f"{rep['captured, 8 graphs']['s'][0]:.3f} s, "
-                  f"{rep['captured, 8 graphs']['first_calls'][0]}), eager "
-                  f"{', '.join(f'{x:.3f}' for x in rep['eager']['s'])} s; "
-                  f"the first pair (a `run` of one pair) captured "
-                  f"{', '.join(f'{x:.3f}' for x in rep['captured']['first_pair_s'])}"
-                  f" s, eager "
-                  f"{', '.join(f'{x:.3f}' for x in rep['eager']['first_pair_s'])}"
-                  f" s; maps bit-equal; {smi}")
-    finally:
-        del graphs.CACHE.first_call
-        graphs.MAX_GRAPHS = cap
+            want = want or maps
+            if not all(torch.equal(g, w) for gm, wm in zip(maps, want)
+                       for g, w in zip(gm, wm)):
+                raise AssertionError(f"mixed sizes {order}: the {mode} "
+                                     f"maps differ from the eager ones")
+            if mode == "captured" and len(seen) != 2 * len(KITTI_HW):
+                raise AssertionError(f"mixed sizes {order}: {len(seen)} "
+                                     f"first calls for "
+                                     f"{2 * len(KITTI_HW)} signatures")
+            rep[mode]["s"].append(sum(secs))
+            rep[mode]["first_pair_s"].append(secs[0])
+            rep[mode]["first_calls"].append(len(seen))
+            rep[mode]["pool_bytes"].append(graphs.CACHE.stats()["pool_bytes"])
+        report[order] = rep
+        print(f"  {order}: {len(seq)} pairs, both methods: captured "
+              f"{', '.join(f'{x:.3f}' for x in rep['captured']['s'])} s "
+              f"with {rep['captured']['first_calls']} first calls of "
+              f"{2 * len(seq)} (frame pool "
+              f"{rep['captured']['pool_bytes'][0] / 1e9:.3f} GB), eager "
+              f"{', '.join(f'{x:.3f}' for x in rep['eager']['s'])} s; "
+              f"the first pair (a `run` of one pair) captured "
+              f"{', '.join(f'{x:.3f}' for x in rep['captured']['first_pair_s'])}"
+              f" s, eager "
+              f"{', '.join(f'{x:.3f}' for x in rep['eager']['first_pair_s'])}"
+              f" s; maps bit-equal; {smi}")
     graphs.clear_caches()
     return report
 
@@ -3821,6 +3838,9 @@ def stage_phase(cfg, kernels, left, right, smi):
 
 # Timing turns (eager, captured, captured, eager) of each config-3 driver.
 BAND_ROUNDS = 2
+# A card's memory for which auto_bands plans config 3 into bands (a 24 GB
+# card's): phase 23 runs that plan's first call against its plan.
+AUTO_BANDS_HBM = 24e9
 
 
 def band_count(method, H, cfg, bands, wf):
@@ -3955,12 +3975,14 @@ def band_phase(cfg, kernels, c3_whole, smi):
     """Phase 23: (a) the 400x450 scene in 2 and 3 bands, both methods, both
     drivers; (b) config 3 in 5 bands, both methods, both drivers, against
     the whole-frame maps of phases 15 and 16, timed in turns and profiled;
-    (c) the config-3 ASW wavefront in 8 bands.  Every captured banded
-    frame's peak reserved memory is held against the band plan
-    (models.tiled.asw_plan_bytes)."""
+    (c) the config-3 ASW wavefront in 8 bands; (d) the config-3 ASW bands
+    that auto_bands plans for a card of AUTO_BANDS_HBM bytes.  Every
+    captured banded frame's peak reserved memory is held against the band
+    plan (models.tiled.asw_plan_bytes)."""
     import torch
 
-    from stereo_matchin_tpu_torch.models import asw, cross_based
+    from stereo_matchin_tpu_torch.models import (asw, cross_based, tiled,
+                                                 wavefront)
     from stereo_matchin_tpu_torch.utils import graphs
 
     graphs.clear_caches()
@@ -4015,6 +4037,24 @@ def band_phase(cfg, kernels, c3_whole, smi):
                             pairs[method], whole, kernels, smi, rounds=1)
             report["config3"][label] = rep
             over += against_plan(label, rep, c3[method], 8, True)
+            bands = tiled.auto_bands((H, W, 3), c3[method],
+                                     hbm_bytes=AUTO_BANDS_HBM)
+            wf = wavefront.wavefront_supported((H, W, 3), c3[method], bands)
+            label = (f"config 3 asw {'wavefront' if wf else 'halo'} {bands} "
+                     f"bands (auto_bands for {AUTO_BANDS_HBM / 1e9:.0f} GB)")
+            print(f" (d) {label}")
+            if (bands, wf) in ((CONFIG3_BANDS, True), (CONFIG3_BANDS, False),
+                               (8, True)):
+                print(f"  {label}: run above, held against its plan")
+            else:
+                rep = band_case(label, method, c3[method], bands, wf,
+                                pairs[method], whole, kernels, smi)
+                report["config3"][label] = rep
+                over += against_plan(label, rep, c3[method], bands, wf)
+            plan = tiled.asw_plan_bytes(kept_rows(H, c3[method], bands, wf),
+                                        W, c3[method], banded=True)
+            if plan > 0.85 * AUTO_BANDS_HBM:
+                raise AssertionError(f"{label}: planned {plan / 1e9:.3f} GB")
         del whole
     del pairs
     graphs.clear_caches()

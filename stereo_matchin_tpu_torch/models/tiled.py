@@ -54,25 +54,25 @@ def cross_reach(cfg: StereoConfig) -> int:
 #: The ASW memory plan, in cost-volume rows (D * W * 4 bytes each), of a
 #: frame or band run as the entries run them on the card: captured as CUDA
 #: graphs.  Measured as the peak of torch.cuda.max_memory_reserved() over
-#: a first call, where the captures happen, at BASELINE config 3 (2880 x
-#: 1988, d_max 279, radius 16, r 7, k 6, aggr_d_chunks 4) on an NVIDIA
-#: H100 80GB HBM3 (PERF.md, sections 5 and 6).  The captured whole frame
-#: peaked at 28.02 GB, 4.37 volume rows per row: its pool and the clone
-#: of its result, the aggregated volume among them.  A captured banded
-#: frame holds one pool for its band graphs (about its largest band's
-#: peak, which eager bands reach at 4.43 volume rows per kept row on a
-#: fixed 1.62 reaches) and, while a band graph's first call warms it up
-#: eagerly, that band's peak beside it: 26.25, 18.26 and 17.62 GB for 5
-#: wavefront, 5 halo and 8 wavefront bands, 9.75, 7.25 and 8.55 volume
-#: rows per (largest band's kept rows + 1.7 reaches).  A later frame
-#: replays at 16.83, 12.05 and 14.15 GB.  The plan rounds the first calls
-#: up, so auto_bands picks no band count whose captured first frame does
-#: not fit.  At config 3 the volumes outweigh the 2*radius + 1 tap weight
-#: strips; a config with few disparities against its taps is outside what
-#: was measured.  The JAX package's 10.5 volumes per row was XLA's plan on
-#: a TPU.
+#: a first call, where the captures happen, and over a replay, at BASELINE
+#: config 3 (2880 x 1988, d_max 279, radius 16, r 7, k 6, aggr_d_chunks 4)
+#: on an NVIDIA H100 80GB HBM3 (PERF.md, sections 5 and 6).  The captured
+#: whole frame peaked at 26.91 GB, 4.20 volume rows per row: its pool and
+#: the clone of its result, the aggregated volume among them.  A captured
+#: banded frame holds one pool for its band graphs (about its largest
+#: band's peak, which eager bands reach at 4.43 volume rows per kept row
+#: on a fixed 1.62 reaches); a band's first call warms up inside that
+#: pool, so no second band's worth lies beside it.  First calls peaked at
+#: 15.39, 11.49 and 12.91 GB for 5 wavefront, 5 halo and 8 wavefront
+#: bands, replays at 16.04, 11.53 and 13.55 GB: at most 6.27 and 6.58
+#: volume rows per (largest band's kept rows + 1.7 reaches).  The plan
+#: rounds them up, so auto_bands picks no band count whose captured frame
+#: does not fit.  At config 3 the volumes outweigh the 2*radius + 1 tap
+#: weight strips; a config with few disparities against its taps is
+#: outside what was measured.  The JAX package's 10.5 volumes per row was
+#: XLA's plan on a TPU.
 _ASW_ROW_VOLUMES = 4.6           # whole frame, per row
-_ASW_BAND_ROW_VOLUMES = 10.5     # band, per (kept row + fixed rows)
+_ASW_BAND_ROW_VOLUMES = 7.0      # band, per (kept row + fixed rows)
 _ASW_BAND_REACHES = 1.7          # band, fixed, in asw_reach rows
 
 

@@ -124,7 +124,8 @@ def sharded_maps(rank: int, cases: list, pairs: dict,
     dict with this rank's `launches` (kernels.LAUNCHES over the last frame;
     `frame_launches` over each), `ms` (each frame, barrier to barrier),
     `peak` (max device memory allocated in the last frame, bytes),
-    `reserved` (max reserved in each frame; 0s on the CPU), `stages`
+    `reserved` (max reserved in each frame, the cached blocks of earlier
+    cases released; 0s on the CPU), `stages`
     (utils/graphs.py STAGES.stats() after the frames: the step graphs,
     their warm-ups' and captures' seconds, pool and slot bytes), `coord`,
     for the "record" runner `steps` (each frame's (name, stage key) list)
@@ -150,6 +151,8 @@ def sharded_maps(rank: int, cases: list, pairs: dict,
         f = (make_asw_sharded(cfg, mesh, case.halo_mode, run)
              if case.method == "asw" else make_cross_sharded(cfg, mesh, run))
         rec = {"ms": [], "frame_launches": [], "reserved": [], "steps": []}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()       # no earlier case's cached blocks
         for _ in range(runs):
             res = None
             _sync(dev)

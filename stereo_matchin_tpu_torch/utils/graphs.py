@@ -9,14 +9,14 @@
     each tensor's shape, dtype and device, and the hashable static
     arguments: a frozen StereoConfig, a crop), as XLA traces once per
     signature and then runs the executable.  The first call of a
-    signature copies the tensors into static buffers, runs fn once on a
-    side stream (the warm-up: it builds and loads the kernels, warms the
-    allocator and measures the frame's peak), then captures fn into a
-    private memory pool.  Every call copies the caller's tensors into the
-    static buffers, replays on the current stream and returns a new
-    result of fn's NamedTuple type with every field cloned: a result the
-    caller holds is never overwritten by a later call, as each call of a
-    jitted function returns fresh arrays.
+    signature runs fn once on the caller's tensors (the warm-up: it builds
+    and loads the kernels and measures the frame's peak), copies the
+    tensors into static buffers of its own and captures fn on them.  Every
+    call copies the caller's tensors into the static buffers, replays on
+    the current stream and returns a new result of fn's NamedTuple type
+    with every field cloned: a result the caller holds is never
+    overwritten by a later call, as each call of a jitted function returns
+    fresh arrays.
 
 Only the shapes and the static arguments may steer fn from the host: a
 value fn read from a tensor while it was captured would be frozen into
@@ -29,27 +29,35 @@ frame's and added once per replay, and the counters are put back as they
 were before the warm-up and the capture.  So every call, the first one
 included, counts exactly one frame.
 
-Memory: a graph's pool holds its frame's peak while the graph lives, and
-each call's clones are as large as the frame's result; a frame's
-footprint is the two together.  The cache keeps at most MAX_GRAPHS
-graphs, least recently used evicted first, and makes room before each of
-the two steps of a first call that allocate a frame's worth:
+Memory, as XLA's allocator lends every compiled program the same buffers:
 
-  * before the warm-up, it evicts the oldest graphs while the card's free
-    memory is below the largest footprint in the cache (a new signature
-    is sized as the largest one held); a warm-up that still runs out of
-    memory evicts the oldest graph and runs again, until none is left;
-  * before the capture, while the free memory is below the warm-up's
-    measured peak plus POOL_MARGIN of it (a pool also keeps the blocks the
-    frame freed inside it) plus the bytes of the result (the first
-    replay's clones).
+  * the frames of a device share one memory pool (a torch.cuda.MemPool),
+    apart from the stage graphs' pools below, so that each family is freed
+    as a unit.  A frame's outputs go back to the pool once it is captured
+    and are read through views that do not own their memory (`borrowed`);
+    each call clones them before the next replay of any frame writes the
+    pool, so the frames may replay in any order and the pool holds about
+    the largest frame's peak, whatever the count of signatures;
+  * the cache keeps every signature while memory allows; there is no count
+    cap.  A first call warms fn up inside the pool it then captures into,
+    on the stream it captures on (the caching allocator hands a freed block
+    only to its own stream): the blocks the warm-up frees are the blocks
+    the capture takes, and no second frame's worth lies beside the pool;
+  * after the warm-up, while the card has fewer free bytes than the
+    capture needs (`capture_need`: the warm-up's peak and POOL_MARGIN of
+    it, above the bytes free in the pool, and the first replay's clones)
+    and the new static inputs, `free_memory` drops every captured frame
+    (one frame cannot hand its part of a shared pool back), then every
+    stage graph unless a hold holds one.  A warm-up that runs out of
+    memory frees the same way and runs again.
 
 The first call of a signature resets the card's peak-memory statistic
 (the warm-up's peak is measured from it).  `clear_caches()` drops every
 graph, as `jax.clear_caches` drops the compiled programs.
 
 Calls may come from different streams: each call waits for the previous
-call's replay and clones before it overwrites the static inputs.
+call's replay and clones, of any graph of its family on its device, before
+it overwrites the static inputs; a first call waits for the whole card.
 
 Stages captured as CUDA graphs: the port's counterpart of the JAX
 package's stage-level jits (`bench/harness.py` `_asw_stage_jits`,
@@ -61,31 +69,18 @@ functools.partial by its function, arguments and keywords; each tensor's
 shape, dtype and device; every other argument by its type and value), as
 XLA compiles a jitted stage once per signature.  The pipelines build a
 fresh partial on every call, so fn's identity could not key it.  A first
-call warms fn up on the caller's own tensors, makes room (below),
-captures fn into the pool every stage graph of a device shares, and
-replays it; every call returns clones (`clone_result`: tensors, tuples
-and NamedTuples, nested, each of its own type).
+call warms fn up on the caller's own tensors inside the pool every stage
+graph of a device shares, makes room as a frame does, captures fn into
+that pool, and replays it; every call returns clones (`clone_result`:
+tensors, tuples and NamedTuples, nested, each of its own type).
 
-A frame runs tens of stages, so stage graphs share what frames keep
-apart:
-
-  * static inputs: the k-th tensor of one shape, dtype and device in a
-    call takes the k-th slot of that kind, one buffer for every graph
-    (the calls are ordered by one event, as a frame's are);
-  * memory: each graph's outputs go back to the shared pool once it is
-    captured and are read through views that do not own their memory
-    (`borrowed`), so a later capture reuses them; every call clones its
-    outputs before the next replay writes the pool, so the graphs may
-    replay in any order.  The pool holds about the largest stage's peak,
-    not the sum of the stages' outputs.
-
-Memory is made before a capture as for a frame (`capture_need` plus the
-new slots' bytes): the oldest captured frames go first, then every stage
-graph at once (they share one pool).  A warm-up that runs out of memory
-frees the same way and runs again.  The stage runner never runs inside a
-capture: the eager chains (`asw_pipeline_impl`, `cross_pipeline_impl`)
-keep `utils.call_stage` as their runner, since the frame entries capture
-them whole.
+A frame runs tens of stages, so stage graphs also share their static
+inputs: the k-th tensor of one shape, dtype and device in a call takes
+the k-th slot of that kind, one buffer for every graph (the calls are
+ordered by one event, as a frame's are).  The stage runner never runs
+inside a capture: the eager chains (`asw_pipeline_impl`,
+`cross_pipeline_impl`) keep `utils.call_stage` as their runner, since the
+frame entries capture them whole.
 
 The band drivers (models/tiled.py, models/wavefront.py,
 models/wavefront_cross.py) run each band as one stage through the same
@@ -95,7 +90,7 @@ band-step jits.  Their memory rule:
 
   * a driver's band graphs share the stage graphs' pool, so a captured
     banded frame holds about its largest band's peak, not the sum of its
-    bands' peaks;
+    bands' peaks, and a band's first call warms up in that pool;
   * the strips a band hands the next pass through the static input slots
     (the port's form of the JAX donation): one slot per strip, whatever
     band reads it;
@@ -122,17 +117,17 @@ step marked `resident` keeps its outputs where its graph wrote them:
     only before it calls that step again (a sharded frame's weights, its
     aggregation rounds' volume), and never returns them;
   * they stay allocated while the graph lives, in a second pool of the
-    device that only resident steps share.  A capture may take any memory
-    that is free at that moment, so in the shared pool a resident step's
-    outputs could lie where a graph captured before it keeps its
-    temporaries or outputs, and that graph's next replay would overwrite
-    them (it did: a config-3 sharded frame's refinement strips, captured
-    after the first WTA's steps, whose graphs run again in every
-    refinement round).  Among resident steps the same holds, so a frame
-    calls them in the order of their first capture and uses a resident
-    output only until a resident step captured before it runs again (a
-    sharded frame: weights, rounds, pin, refinement strips; the next frame
-    computes them anew);
+    device that only resident steps share (their warm-ups run there too).
+    A capture may take any memory that is free at that moment, so in the
+    shared pool a resident step's outputs could lie where a graph captured
+    before it keeps its temporaries or outputs, and that graph's next
+    replay would overwrite them (it did: a config-3 sharded frame's
+    refinement strips, captured after the first WTA's steps, whose graphs
+    run again in every refinement round).  Among resident steps the same
+    holds, so a frame calls them in the order of their first capture and
+    uses a resident output only until a resident step captured before it
+    runs again (a sharded frame: weights, rounds, pin, refinement strips;
+    the next frame computes them anew);
   * a later step that takes one of them reads it where it is: no slot and
     no copy, its address part of that step's key (stable, since the
     resident graph writes the same memory on every replay).
@@ -156,10 +151,13 @@ import torch
 
 from .. import kernels
 
-MAX_GRAPHS = 4
 # A pool's bytes above its warm-up's peak: 4-17% on the card (PERF.md,
 # section 5), so a quarter.
 POOL_MARGIN = 0.25
+
+# First calls, replays and freeing, one at a time: freeing crosses the
+# families.
+_LOCK = threading.RLock()
 
 
 def signature(fn, tensors, statics) -> tuple:
@@ -221,29 +219,37 @@ def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(tensors))
 
 
-def capture_need(warm: dict) -> int:
-    """The free bytes a capture needs: the pool (the warm-up's peak and
-    POOL_MARGIN of it) and the first replay's clones."""
+def pool_state(pool) -> tuple:
+    """(reserved, free) bytes of a torch.cuda.MemPool, (0, 0) for None: its
+    segments' bytes, and those of them no tensor holds."""
+    if pool is None:
+        return 0, 0
+    segments = [s for s in torch.cuda.memory_snapshot(pool.id)
+                if tuple(s["segment_pool_id"]) == tuple(pool.id)]
+    reserved = sum(s["total_size"] for s in segments)
+    return reserved, reserved - sum(s["allocated_size"] for s in segments)
+
+
+def capture_need(warm: dict, pool_free: int = 0) -> int:
+    """The free bytes a capture needs: what its pool needs (the warm-up's
+    peak and POOL_MARGIN of it) above the `pool_free` bytes free in it, and
+    the first replay's clones."""
     peak = warm["warmup_peak_bytes"]
-    return peak + int(peak * POOL_MARGIN) + warm["output_bytes"]
+    return (max(0, peak + int(peak * POOL_MARGIN) - pool_free)
+            + warm["output_bytes"])
 
 
 class CapturedFrame:
     """One signature's graph, its static input and output tensors, the
-    launches of one frame, and what its first call measured (seconds of
-    warm-up and of capture, the warm-up's peak bytes, the result's bytes,
-    the pool's bytes)."""
+    launches of one frame, what its first call measured (seconds of
+    warm-up and of capture, the warm-up's peak bytes, the result's bytes),
+    and `done`, its family's event after the last call's clones on its
+    device."""
 
     def __init__(self, graph, inputs, output, launches, stats):
         self.graph, self.inputs, self.output = graph, inputs, output
         self.launches, self.stats = launches, stats
-        self.done = torch.cuda.Event()      # the last call's clones
-
-    @property
-    def footprint(self) -> int:
-        """The bytes the frame holds on the card: its pool, and the clones
-        of a call whose result the caller keeps."""
-        return self.stats["pool_bytes"] + self.stats["output_bytes"]
+        self.done = None
 
     def load(self, tensors) -> None:
         """Wait for the last call's clones, then copy the call's tensors
@@ -271,40 +277,40 @@ class CapturedFrame:
         return self.result()
 
 
-def warm_up(fn, inputs, statics, dev) -> dict:
-    """Run fn once on a side stream of `dev` (it builds and loads the
-    kernels and warms the allocator; its result is dropped).  Returns its
-    seconds, its peak bytes above those allocated before it, the bytes of
-    its result and its launches; the launch counters are put back."""
+def warm_up(fn, inputs, statics, dev, pool, stream) -> dict:
+    """Run fn once on `stream`, its memory in `pool` (a torch.cuda.MemPool),
+    after all work on `dev`: it builds and loads the kernels, and leaves
+    the blocks it freed in the pool, where a capture on the same stream
+    takes them again.  Returns its seconds, its peak bytes above those
+    allocated before it, the bytes of its result (which it drops) and its
+    launches; the launch counters are put back."""
     before = dict(kernels.LAUNCHES)
     try:
+        torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(stream), torch.cuda.use_mem_pool(pool, dev):
             out = fn(*inputs, *statics)
-        torch.cuda.current_stream(dev).wait_stream(side)
+            output_bytes = nbytes(out)
+            del out
         torch.cuda.synchronize(dev)
         return {"warmup_s": time.perf_counter() - t0,
                 "warmup_peak_bytes": torch.cuda.max_memory_allocated(dev)
-                - base, "output_bytes": nbytes(out),
+                - base, "output_bytes": output_bytes,
                 "launches": launch_delta(before, kernels.LAUNCHES)}
     finally:
         kernels.LAUNCHES.update(before)
 
 
-def capture(fn, inputs, statics, dev, warm, pool=None) -> CapturedFrame:
-    """Capture fn on `inputs` into a private pool, or into `pool` (a
-    torch.cuda.graph_pool_handle), after warm_up, as torch.cuda.graph's
-    documentation does it; the launch counters are put back."""
+def capture(fn, inputs, statics, dev, warm, pool, stream) -> CapturedFrame:
+    """Capture fn on `inputs` into `pool` (a torch.cuda.MemPool) on
+    `stream`, after warm_up; the launch counters are put back."""
     before = dict(kernels.LAUNCHES)
     try:
-        reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool):
+        with torch.cuda.graph(graph, pool=pool.id, stream=stream):
             output = fn(*inputs, *statics)
         capture_s = time.perf_counter() - t0
         launches = launch_delta(before, kernels.LAUNCHES)
@@ -315,82 +321,120 @@ def capture(fn, inputs, statics, dev, warm, pool=None) -> CapturedFrame:
                            f"launched {launches}, the warm-up "
                            f"{warm['launches']}")
     stats = {k: v for k, v in warm.items() if k != "launches"}
-    return CapturedFrame(graph, inputs, output, launches, stats | {
-        "capture_s": capture_s,
-        "pool_bytes": torch.cuda.memory_reserved(dev) - reserved})
+    return CapturedFrame(graph, inputs, output, launches,
+                         stats | {"capture_s": capture_s})
 
 
-class GraphCache:
-    """The captured frames by signature, least recently used first."""
+def free_memory() -> bool:
+    """Drop every captured frame, or else every stage graph unless a hold
+    holds one of them; False when there is nothing left to free."""
+    with _LOCK:
+        if CACHE.graphs:
+            CACHE.clear()
+            return True
+        return STAGES.drop()
+
+
+def make_room(need, device) -> None:
+    """Release cached blocks, then free (free_memory) while the card has
+    fewer than need() bytes free (need is asked again after each drop)."""
+    torch.cuda.empty_cache()
+    while torch.cuda.mem_get_info(device)[0] < need() and free_memory():
+        pass
+
+
+class GraphFamily:
+    """Graphs of one kind by key, captured into their family's memory pools
+    (one a device, and one more for resident steps): a family is freed as a
+    unit, never one graph's part of a pool."""
 
     def __init__(self):
-        self.frames = collections.OrderedDict()
-        self._lock = threading.Lock()
+        self.graphs = {}          # key -> CapturedFrame
+        self.pools = {}           # (device, resident) -> torch.cuda.MemPool
+        self.streams = {}         # device -> its warm-ups' and captures'
+        self.done = {}            # device -> event after the last clones
 
-    def get(self, key):
-        """The frame of `key` (now the most recently used), or None."""
-        frame = self.frames.get(key)
-        if frame is not None:
-            self.frames.move_to_end(key)
-        return frame
+    def pool(self, dev, resident=False):
+        if (dev, resident) not in self.pools:
+            self.pools[dev, resident] = torch.cuda.MemPool()
+        return self.pools[dev, resident]
 
-    def put(self, key, frame) -> None:
-        self.frames[key] = frame
-        self.frames.move_to_end(key)
+    def stream(self, dev):
+        if dev not in self.streams:
+            self.streams[dev] = torch.cuda.Stream(dev)
+        return self.streams[dev]
 
-    def evict_oldest(self) -> None:
-        """Drop the least recently used frame; its pool goes back to the
-        card."""
-        self.frames.popitem(last=False)
-        torch.cuda.empty_cache()
-
-    def evict_to(self, count: int) -> None:
-        """Evict the oldest frames until at most `count` are left."""
-        while len(self.frames) > count:
-            self.evict_oldest()
-
-    def largest_footprint(self) -> int:
-        return max((f.footprint for f in self.frames.values()), default=0)
-
-    def make_room(self, need: int, device) -> None:
-        """Release cached blocks, then evict the oldest graphs while the
-        card has less than `need` bytes free."""
-        torch.cuda.empty_cache()
-        while self.frames and torch.cuda.mem_get_info(device)[0] < need:
-            self.evict_oldest()
-
-    def clear(self) -> None:
-        self.evict_to(0)
-
-    def first_call(self, fn, tensors, statics, dev) -> CapturedFrame:
-        """Make room, warm up, make room, capture (the module's docstring
-        says how much room)."""
-        self.evict_to(MAX_GRAPHS - 1)
-        self.make_room(self.largest_footprint(), dev)
-        inputs = tuple(t.clone() for t in tensors)
+    def first_capture(self, fn, tensors, statics, dev, inputs, new_bytes,
+                      resident=False) -> CapturedFrame:
+        """Warm fn up on the caller's tensors inside the pool it captures
+        into (a warm-up out of memory frees and runs again), make room for
+        the capture and new_bytes() of new static inputs, then capture fn on
+        inputs() (the module's docstring)."""
         while True:
             try:
-                warm = warm_up(fn, inputs, statics, dev)
+                warm = warm_up(fn, tensors, statics, dev,
+                               self.pool(dev, resident), self.stream(dev))
                 break
             except torch.cuda.OutOfMemoryError:
-                # The warm-up's result is never used, so a run that did not
-                # fit is dropped and run again with one graph fewer.
-                if not self.frames:
+                if not free_memory():
                     raise
-            self.evict_oldest()
-        self.make_room(capture_need(warm), dev)
-        return capture(fn, inputs, statics, dev, warm)
+        make_room(lambda: capture_need(warm, pool_state(
+            self.pools.get((dev, resident)))[1]) + new_bytes(), dev)
+        graph = capture(fn, inputs(), statics, dev, warm,
+                        self.pool(dev, resident), self.stream(dev))
+        if dev not in self.done:
+            self.done[dev] = torch.cuda.Event()
+        graph.done = self.done[dev]
+        return graph
+
+    def input_tensors(self) -> list:
+        return [t for g in self.graphs.values() for t in g.inputs]
+
+    def clear(self) -> None:
+        """Drop every graph, then the pools."""
+        if self.graphs or self.pools:
+            self.graphs.clear()
+            self.pools.clear()
+            self.done.clear()
+            torch.cuda.empty_cache()
+
+    def stats(self) -> dict:
+        """The graphs held, their warm-ups' and captures' seconds, the
+        family's pools' bytes and its static inputs' bytes."""
+        st = [g.stats for g in self.graphs.values()]
+        return {"graphs": len(st),
+                "warmup_s": sum(s["warmup_s"] for s in st),
+                "capture_s": sum(s["capture_s"] for s in st),
+                "pool_bytes": sum(pool_state(p)[0]
+                                  for p in self.pools.values()),
+                "input_bytes": nbytes(self.input_tensors())}
+
+
+class GraphCache(GraphFamily):
+    """The captured frames by signature (the module's docstring)."""
+
+    def first_call(self, fn, tensors, statics, dev) -> CapturedFrame:
+        """Warm up, make room, capture into the device's frame pool on
+        copies of the call's tensors (this signature's static inputs,
+        outside the pool), and hand the outputs' memory back to the
+        pool."""
+        graph = self.first_capture(
+            fn, tensors, statics, dev,
+            inputs=lambda: tuple(t.clone() for t in tensors),
+            new_bytes=lambda: nbytes(tensors))
+        graph.output = map_tensors(borrowed, graph.output)
+        return graph
 
     def __call__(self, fn, tensors, statics):
         if not any(t.is_cuda for t in tensors):
             return fn(*tensors, *statics)
         key = signature(fn, tensors, statics)
         dev = next(t.device for t in tensors if t.is_cuda)
-        with self._lock, torch.cuda.device(dev):
-            frame = self.get(key)
+        with _LOCK, torch.cuda.device(dev):
+            frame = self.graphs.get(key)
             if frame is None:
                 frame = self.first_call(fn, tensors, statics, dev)
-                self.put(key, frame)
+                self.graphs[key] = frame
             return frame(tensors)
 
 
@@ -495,19 +539,15 @@ def slot_keys(tensors) -> list:
     return keys
 
 
-class StageGraphs:
+class StageGraphs(GraphFamily):
     """The stage graphs of a process, by stage signature (the module's
     docstring); `call` runs one stage and may record two events right
     around its replay."""
 
     def __init__(self):
-        self.graphs = {}          # stage_key -> CapturedFrame
+        super().__init__()
         self.slots = {}           # slot_keys entry -> static input buffer
-        self.pools = {}           # (device, resident) -> the pool those
-                                  # graphs share
-        self.done = {}            # device -> event after the last clones
         self.resident = set()     # storages of resident steps' outputs
-        self._lock = threading.Lock()
         self._holds = 0           # open hold() contexts
         self._held = set()        # stage keys called inside them
 
@@ -542,7 +582,7 @@ class StageGraphs:
             raise RuntimeError(f"stage {name}: a stage graph cannot be "
                                f"captured inside another capture")
         key = stage_key(name, fn, args)
-        with self._lock, torch.cuda.device(dev):
+        with _LOCK, torch.cuda.device(dev):
             in_place = self.in_place(tensors)
             key += tuple((i, t.data_ptr(), t.stride())
                          for i, (t, r) in enumerate(zip(tensors, in_place))
@@ -574,36 +614,27 @@ class StageGraphs:
 
     def first_call(self, name, fn, args, tensors, dev,
                    in_place=None) -> CapturedFrame:
-        """Warm up on the caller's tensors, make room, capture into the
-        device's shared pool on the slots (a resident step's output in
-        place), and hand the outputs' memory back to the pool; a resident
-        step captures into the device's pool of resident steps and keeps
-        its outputs (the module's docstring)."""
+        """Warm up on the caller's tensors and capture into the device's
+        shared pool on the slots (a resident step's output in place), and
+        hand the outputs' memory back to the pool; a resident step warms up
+        and captures in the device's pool of resident steps and keeps its
+        outputs (the module's docstring)."""
         in_place = in_place or [False] * len(tensors)
-        bound = _Bound(name, fn, args)
-        while True:
-            try:
-                warm = warm_up(bound, tensors, (), dev)
-                break
-            except torch.cuda.OutOfMemoryError:
-                if not self.free_memory():
-                    raise
+        resident = is_resident(fn)
         copied = [t for t, r in zip(tensors, in_place) if not r]
         keys = slot_keys(copied)
-        self.make_room(capture_need(warm) + nbytes(tuple(
-            t for t, k in zip(copied, keys) if k not in self.slots)), dev)
-        for k in keys:
-            if k not in self.slots:
-                self.slots[k] = torch.empty(k[0], dtype=k[1], device=k[2])
-        slots = iter([self.slots[k] for k in keys])
-        inputs = [t if r else next(slots) for t, r in zip(tensors, in_place)]
-        resident = is_resident(fn)
-        if (dev, resident) not in self.pools:
-            self.pools[dev, resident] = torch.cuda.graph_pool_handle()
-        if dev not in self.done:
-            self.done[dev] = torch.cuda.Event()
-        graph = capture(bound, inputs, (), dev, warm,
-                        self.pools[dev, resident])
+
+        def inputs():
+            for k in keys:
+                if k not in self.slots:
+                    self.slots[k] = torch.empty(k[0], dtype=k[1], device=k[2])
+            slots = iter([self.slots[k] for k in keys])
+            return [t if r else next(slots) for t, r in zip(tensors, in_place)]
+
+        graph = self.first_capture(
+            _Bound(name, fn, args), tensors, (), dev, inputs,
+            lambda: nbytes(tuple(t for t, k in zip(copied, keys)
+                                 if k not in self.slots)), resident)
         if resident:
             outs = {t.untyped_storage().data_ptr()
                     for t in leaves(graph.output)}
@@ -615,48 +646,25 @@ class StageGraphs:
             self.resident |= outs
         else:
             graph.output = map_tensors(borrowed, graph.output)
-        graph.done = self.done[dev]
         return graph
 
-    def free_memory(self) -> bool:
-        """Evict the oldest captured frame, or else every stage graph
-        unless a hold holds one of them; False when there is nothing left
-        to free."""
-        with CACHE._lock:
-            if CACHE.frames:
-                CACHE.evict_oldest()
-                return True
+    def drop(self) -> bool:
+        """Drop every stage graph unless a hold holds one of them; False
+        when there is none or one is held."""
         if not self.graphs or not self._held.isdisjoint(self.graphs):
             return False
         self.clear()
         return True
 
-    def make_room(self, need: int, device) -> None:
-        """Release cached blocks, then free (free_memory) while the card
-        has less than `need` bytes free."""
-        torch.cuda.empty_cache()
-        while torch.cuda.mem_get_info(device)[0] < need and self.free_memory():
-            pass
+    def input_tensors(self) -> list:
+        return list(self.slots.values())
 
     def clear(self) -> None:
-        """Drop every stage graph, the slots and the pools."""
-        if self.graphs or self.slots:
-            self.graphs.clear()
-            self.slots.clear()
-            self.resident.clear()
-            self.pools.clear()
-            self.done.clear()
-            torch.cuda.empty_cache()
-
-    def stats(self) -> dict:
-        """The graphs held, their warm-ups' and captures' seconds, their
-        pools' bytes and the slots' bytes."""
-        st = [g.stats for g in self.graphs.values()]
-        return {"graphs": len(st),
-                "warmup_s": sum(s["warmup_s"] for s in st),
-                "capture_s": sum(s["capture_s"] for s in st),
-                "pool_bytes": sum(s["pool_bytes"] for s in st),
-                "input_bytes": nbytes(tuple(self.slots.values()))}
+        """Drop every stage graph, the slots (made only after a pool) and
+        the pools."""
+        self.slots.clear()
+        self.resident.clear()
+        super().clear()
 
 
 STAGES = StageGraphs()
@@ -670,5 +678,6 @@ def replay_stage(name: str, fn, *args):
 
 def clear_caches() -> None:
     """Drop every captured frame and stage graph and release their pools."""
-    CACHE.clear()
-    STAGES.clear()
+    with _LOCK:
+        CACHE.clear()
+        STAGES.clear()

@@ -32,8 +32,8 @@ from stereo_matchin_tpu_torch.utils import call_stage, graphs, replay_stage
 from .test_torch_bands_asw import CONFIG3_KW
 from .test_torch_bands_asw import SMALL as ASW_SMALL
 from .test_torch_bands_cross import SMALL as CROSS_SMALL
-from .test_torch_stage_graphs import _Card, _fake_card, no_cuda  # noqa: F401
-from .torch_support import config_pair, t
+from .test_torch_stage_graphs import no_cuda  # noqa: F401
+from .torch_support import FakeCard, config_pair, t
 
 ASW_CFG = config_pair(**ASW_SMALL)[1]
 CROSS_CFG = config_pair(**CROSS_SMALL)[1]
@@ -257,27 +257,21 @@ def test_runner_refuses_a_tensor_nested_in_an_argument(nested, no_cuda):  # noqa
 # --- the memory rule: a frame holds its graphs, the card's calls faked -------------
 
 def test_a_held_frame_keeps_its_graphs_when_room_is_short(monkeypatch):
-    """Inside a hold, making room drops captured frames but never the stage
-    graphs a held frame called; outside it, every stage graph can go."""
-    evicted = []
-    card = _Card(total=1000, used=900)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    monkeypatch.setattr(torch.cuda, "mem_get_info", card.mem_get_info)
-    frames = graphs.GraphCache()
-    monkeypatch.setattr(graphs, "CACHE", frames)
-    frames.put("frame", "frame")
-    monkeypatch.setattr(frames, "evict_oldest", lambda: (
-        evicted.append(frames.frames.popitem(last=False)[0])))
-    stages = graphs.StageGraphs()
-    stages.graphs = {"first_band": 1, "other": 2}
+    """Inside a hold, making room drops the captured frames but never the
+    stage graphs a held frame called; outside it, every stage graph can
+    go."""
+    card = FakeCard(monkeypatch, total=1000, other=700)
+    card.held("frames", 1, 100)
+    card.held("stages", 2, 100)
+    stages = graphs.STAGES
     with stages.hold():
-        stages._held.add("first_band")
-        stages.make_room(500, "dev")
-        assert evicted == ["frame"]
-        assert set(stages.graphs) == {"first_band", "other"}
-        assert not stages.free_memory()
+        stages._held.add("stages 0")
+        graphs.make_room(lambda: 500, "dev")
+        assert card.events == [("drop", "frames")]
+        assert set(stages.graphs) == {"stages 0", "stages 1"}
+        assert not graphs.free_memory()
     assert not stages._held
-    assert stages.free_memory() and not stages.graphs
+    assert graphs.free_memory() and not stages.graphs
 
 
 def test_a_held_frames_first_call_raises_where_only_its_graphs_could_go(
@@ -285,16 +279,10 @@ def test_a_held_frames_first_call_raises_where_only_its_graphs_could_go(
     """A warm-up out of memory inside a held frame drops the captured
     frames and then raises: it never drops the frame's graphs (which
     would capture every band again on every frame)."""
-    events = []
-    card = _Card(total=10**6, used=0)
-    _fake_card(monkeypatch, card, events)
-    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache())
-
-    def out_of_memory(*args):
-        raise torch.cuda.OutOfMemoryError("out of memory")
-
-    monkeypatch.setattr(graphs, "warm_up", out_of_memory)
-    stages = graphs.StageGraphs()
+    card = FakeCard(monkeypatch, total=10**6)
+    card.held("frames", 1, 100)
+    card.oom = lambda: True
+    stages = graphs.STAGES
     a = torch.rand(3)
     with stages.hold():
         stages.graphs = {"first_band": 1}
@@ -302,6 +290,7 @@ def test_a_held_frames_first_call_raises_where_only_its_graphs_could_go(
         with pytest.raises(torch.cuda.OutOfMemoryError):
             stages.first_call("mid_band", torch.neg, (a,), [a], "dev")
         assert stages.graphs == {"first_band": 1}
+    assert [e[0] for e in card.events] == ["warm_up", "drop", "warm_up"]
 
 
 def test_every_driver_holds_its_frame(pair, monkeypatch):

@@ -877,6 +877,22 @@ def test_replayed_shard_steps_equal_eager_on_one_rank(one_rank, method):
     assert got["eager"]["stages"]["graphs"] == 0
 
 
+@pytest.mark.parametrize("method", ["asw", "cross"])
+def test_first_sharded_frame_peaks_no_higher_than_a_replay(one_rank, method):
+    """A rank's first frame captures its steps, each warmed up inside the
+    pool it captures into (resident steps in theirs): its peak reserved
+    memory is no more than the replayed frame's plus POOL_MARGIN of the
+    step graphs' pools."""
+    backend, cases, recs, _ = one_rank
+    rec = next(r for c, r in zip(cases, recs)
+               if c.method == method and c.run == "replay")
+    first, replay = rec["reserved"]
+    pool = rec["stages"]["pool_bytes"]
+    assert pool > 0
+    assert first <= replay + graphs.POOL_MARGIN * pool, (backend, first,
+                                                         replay, pool)
+
+
 def _png_pairs(root, count, H, W):
     """`count` seeded UNORM8 PNG pairs under root/pair<k>/, as StereoPairs."""
     from stereo_matchin_tpu_torch.io import StereoPair, png
@@ -1001,9 +1017,9 @@ def test_captured_frame_equals_eager_on_pairs_it_was_not_captured_on(
         assert type(got) is type(want)
         for f in want._fields:
             assert torch.equal(getattr(got, f), getattr(want, f)), f
-    assert len(fresh_graphs.frames) == 1
-    stats = next(iter(fresh_graphs.frames.values())).stats
-    assert stats["pool_bytes"] > 0 and stats["capture_s"] > 0
+    assert len(fresh_graphs.graphs) == 1
+    stats = next(iter(fresh_graphs.graphs.values())).stats
+    assert fresh_graphs.stats()["pool_bytes"] > 0 and stats["capture_s"] > 0
 
 
 def test_batched_replays_one_captured_frame(fresh_graphs):
@@ -1019,7 +1035,7 @@ def test_batched_replays_one_captured_frame(fresh_graphs):
     for b, (left, right) in enumerate(pairs):
         for g, w in zip(got, asw.asw_pipeline_impl(left, right, cfg)):
             assert torch.equal(g[b], w)
-    assert len(fresh_graphs.frames) == 1
+    assert len(fresh_graphs.graphs) == 1
 
 
 @pytest.mark.parametrize("method", ["asw", "cross"])
@@ -1055,11 +1071,10 @@ def test_calls_from_two_streams_each_get_their_own_pair(fresh_graphs):
     for res, pair in zip(got, pairs[1:]):
         for g, w in zip(res, asw.asw_pipeline_impl(*pair, cfg)):
             assert torch.equal(g, w)
-    frame = next(iter(fresh_graphs.frames.values()))
+    frame = next(iter(fresh_graphs.graphs.values()))
     assert frame.stats["output_bytes"] == sum(
         t.numel() * t.element_size() for t in got[0])
-    assert frame.footprint == (frame.stats["pool_bytes"]
-                               + frame.stats["output_bytes"])
+    assert frame.done is fresh_graphs.done[dev]
 
 
 def test_new_signature_captures_another_graph(fresh_graphs):
@@ -1068,35 +1083,85 @@ def test_new_signature_captures_another_graph(fresh_graphs):
     left, right = _pair(dev, 48, 64, seed=28)
     asw.asw_pipeline(left, right, cfg)
     asw.asw_pipeline(left, right, cfg)
-    assert len(fresh_graphs.frames) == 1
+    assert len(fresh_graphs.graphs) == 1
     small = _pair(dev, 40, 64, seed=28)
     got = asw.asw_pipeline(*small, cfg)
-    assert len(fresh_graphs.frames) == 2
+    assert len(fresh_graphs.graphs) == 2
     cropped = asw.asw_pipeline(left, right, cfg, (3, 5))
-    assert len(fresh_graphs.frames) == 3
+    assert len(fresh_graphs.graphs) == 3 and len(fresh_graphs.pools) == 1
     for g, w in zip(got, asw.asw_pipeline_impl(*small, cfg)):
         assert torch.equal(g, w)
     for g, w in zip(cropped, asw.asw_pipeline_impl(left, right, cfg, (3, 5))):
         assert torch.equal(g, w)
 
 
-def test_least_recently_used_graph_is_evicted_past_four(fresh_graphs):
+def test_every_signature_stays_held_and_held_results_survive_replays(
+        fresh_graphs):
+    """Five widths captured into the frames' one pool, then replayed in a
+    shuffled order: all five graphs stay held, every result equals
+    cross_pipeline_impl's bit for bit, and every result held from an
+    earlier call is unchanged after each later replay of any signature,
+    the shared pool's hazard."""
     dev = cuda_device()
     cfg = TINY_CONFIG
-    pairs = {w: _pair(dev, 32, w, seed=w) for w in (40, 48, 56, 64, 72)}
-    for w in (40, 48, 56, 64):
-        cross_based.cross_pipeline(*pairs[w], cfg)
-    cross_based.cross_pipeline(*pairs[40], cfg)       # 48 is now the oldest
-    assert len(fresh_graphs.frames) == graphs.MAX_GRAPHS == 4
-    cross_based.cross_pipeline(*pairs[72], cfg)
-    widths = [key[1][0][0][1] for key in fresh_graphs.frames]
-    assert widths == [56, 64, 40, 72]
-    for w, (left, right) in pairs.items():
-        got = cross_based.cross_pipeline(left, right, cfg)
-        for g, want in zip(got, cross_based.cross_pipeline_impl(left, right,
-                                                                cfg)):
-            assert torch.equal(g, want), w
-    assert len(fresh_graphs.frames) == 4
+    widths = (40, 48, 56, 64, 72)
+    pairs = {w: _pair(dev, 32, w, seed=w) for w in widths}
+    want = {w: cross_based.cross_pipeline_impl(*pairs[w], cfg) for w in widths}
+    order = list(widths) + [int(w) for w in np.random.default_rng(
+        5).permutation(widths * 3)]
+    held = []
+    for w in order:
+        got = cross_based.cross_pipeline(*pairs[w], cfg)
+        held.append((w, got))
+        for hw, res in held:
+            for g, x in zip(res, want[hw]):
+                assert torch.equal(g, x), hw
+    assert len(fresh_graphs.graphs) == len(widths)
+    assert len(fresh_graphs.pools) == 1
+    assert sorted(key[1][0][0][1] for key in fresh_graphs.graphs) == list(
+        widths)
+
+
+def _reserved_peaks(call):
+    """(first call's, replay's) peak reserved bytes above the card's state
+    before the first call, cached blocks released before each."""
+    graphs.clear_caches()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    peaks = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_reserved() - base)
+        del out
+    return peaks
+
+
+@pytest.mark.parametrize("family", ["frame", "band stage"])
+def test_first_call_peaks_no_higher_than_a_replay(family, fresh_graphs):
+    """A first call warms up inside the pool it captures into: its peak
+    reserved memory is no more than a replay's plus POOL_MARGIN of the
+    family's pool (the captured frame at 288x384 REFERENCE_CONFIG; the
+    400x450 scene in 3 ASW halo bands, whose bands each warm up beside the
+    graphs already captured)."""
+    dev = cuda_device()
+    if family == "frame":
+        left, right = _pair(dev, 288, 384, seed=50)
+        first, replay = _reserved_peaks(
+            lambda: asw.asw_pipeline(left, right, REF_CFG))
+        pool = graphs.CACHE.stats()["pool_bytes"]
+    else:
+        cfg = REF_CFG.replace(aggr_d_chunks=3)
+        left, right = _scene_pair(dev, 400, 450, cfg.d_max, 51)
+        first, replay = _reserved_peaks(lambda: tiled.asw_pipeline_tiled(
+            left, right, cfg, 3, wavefront=False))
+        pool = graphs.STAGES.stats()["pool_bytes"]
+    assert pool > 0
+    assert first <= replay + graphs.POOL_MARGIN * pool, (first, replay, pool)
 
 
 def test_host_copy_during_capture_raises_and_does_not_fall_back(
@@ -1114,7 +1179,7 @@ def test_host_copy_during_capture_raises_and_does_not_fall_back(
     with pytest.raises(RuntimeError):
         cross_based.cross_pipeline(left, right, cfg)
     assert kernels.LAUNCHES == before
-    assert not fresh_graphs.frames
+    assert not fresh_graphs.graphs
     monkeypatch.undo()
     got = cross_based.cross_pipeline(left, right, cfg)
     for g, w in zip(got, cross_based.cross_pipeline_impl(left, right, cfg)):
@@ -1245,7 +1310,7 @@ def test_captured_debug_equals_its_eager_chain(k_iters, fresh_graphs):
         assert type(got.result) is asw.ASWResult
         for g, w in zip(graphs.leaves(got), graphs.leaves(want)):
             assert torch.equal(g, w)
-    assert len(fresh_graphs.frames) == 1
+    assert len(fresh_graphs.graphs) == 1
 
 
 # --- the band steps replayed from CUDA graphs (models/tiled.py,

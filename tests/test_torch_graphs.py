@@ -1,9 +1,11 @@
 """The frame-graph cache (stereo_matchin_tpu_torch/utils/graphs.py) on the
-CPU: its signature key, its launch bookkeeping, least-recently-used order
-and memory rules as plain functions (the card's memory calls faked), and the captured entries (`asw_pipeline`,
-`cross_pipeline`, `asw_pipeline_batched`), which on CPU tensors call
-their eager chains (`*_impl`) and touch no `torch.cuda`.  The captures
-themselves run on the card (tests/test_torch_cuda.py)."""
+CPU: its signature key, its launch bookkeeping and its memory rules (every
+signature kept while the card has room, the frames' one pool, families
+dropped as a whole; the card's calls faked, tests/torch_support.py
+FakeCard), and the captured entries (`asw_pipeline`, `cross_pipeline`,
+`asw_pipeline_batched`), which on CPU tensors call their eager chains
+(`*_impl`) and touch no `torch.cuda`.  The captures themselves run on the
+card (tests/test_torch_cuda.py)."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from stereo_matchin_tpu_torch.config import TINY_CONFIG
 from stereo_matchin_tpu_torch.models import asw, cross_based
 from stereo_matchin_tpu_torch.utils import graphs
 
+from .torch_support import FakeCard as graphs_card
 from .torch_support import unorm8_pair
 
 
@@ -85,7 +88,7 @@ def test_cpu_call_runs_the_eager_chain_once_and_no_cuda(entry, impl, statics,
     assert type(got) is type(want)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert not graphs.CACHE.frames
+    assert not graphs.CACHE.graphs
 
 
 def test_captured_entries_equal_their_eager_chains_on_the_cpu():
@@ -123,40 +126,119 @@ def test_launch_bookkeeping_counts_one_frame_a_replay():
     assert counts == dict(two_min=24, wta_diag=24, vote_h=0)
 
 
-def test_cache_evicts_the_least_recently_used(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    cache = graphs.GraphCache()
-    for k in "abcd":
-        cache.put(k, k.upper())
-    assert cache.get("a") == "A"                  # a is now the newest
-    assert cache.get("z") is None
-    cache.evict_to(graphs.MAX_GRAPHS - 1)         # room for one capture
-    assert list(cache.frames) == ["c", "d", "a"]
-    cache.put("e", "E")
-    cache.get("c")
-    cache.evict_oldest()
-    assert list(cache.frames) == ["a", "e", "c"]
-    cache.clear()
-    assert not cache.frames
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card, so that the cache takes
+    it through its CUDA path (the card's calls faked)."""
+
+    is_cuda = True
 
 
-class _Frame:
-    """A captured frame as the cache's memory rules see it."""
-
-    def __init__(self, footprint):
-        self.footprint = footprint
+def _on_card(*shape):
+    return torch.zeros(*shape).as_subclass(_OnCard)
 
 
-class _Card:
-    """mem_get_info of a card of `total` bytes holding the cache's
-    frames' footprints and `other` bytes besides."""
+def _frame_fn(left, right, cfg):
+    return "eager frame"
 
-    def __init__(self, cache, total, other=0):
-        self.cache, self.total, self.other = cache, total, other
 
-    def mem_get_info(self, device=None):
-        held = sum(f.footprint for f in self.cache.frames.values())
-        return self.total - held - self.other, self.total
+@pytest.mark.parametrize("count", [2, 5, 9])
+def test_cache_holds_every_signature_while_the_card_has_room(count,
+                                                             monkeypatch):
+    """`count` signatures, each called once and then twice more in a
+    shuffled order: each is captured once, into the device's one frame
+    pool, and every later call replays its own graph; nothing is
+    dropped."""
+    card = graphs_card(monkeypatch, total=10**6, peak=400, output=100)
+    cache = graphs.CACHE
+    pairs = {w: (_on_card(4, w, 3), _on_card(4, w, 3)) for w in
+             range(8, 8 + count)}
+    order = list(pairs) + [int(w) for w in np.random.default_rng(
+        count).permutation(list(pairs) * 2)]
+    for w in order:
+        assert cache(_frame_fn, pairs[w], (TINY_CONFIG,)) == "output"
+    assert len(cache.graphs) == count
+    assert [g.calls for g in cache.graphs.values()] == [3] * count
+    assert [e[0] for e in card.events] == ["warm_up", "capture"] * count
+    assert len(cache.pools) == 1
+    pool = cache.pools[torch.device("cpu"), False]
+    assert all(e[1] is pool and e[2] == "stream" for e in card.events)
+    assert pool.reserved == 400                   # the largest peak, once
+    assert {key[1][0][0][1] for key in cache.graphs} == set(pairs)
+
+
+# (the frames' pool, the card's other bytes, whether a hold holds a stage
+# graph) -> what a new frame signature's first call drops.  On a card of
+# 2500 the stage graphs hold a pool of 500; the new signature (peak 600,
+# result 50, two inputs of 100 bytes) warms up in the frames' pool, which
+# holds it, and its capture needs POOL_MARGIN of the peak above the pool's
+# free bytes, the clones and the inputs.  Dropping the frames frees their
+# pool and leaves the capture a new one: 750 + 250.
+FIRST_CALL_DROPS = {
+    (1000, 300, False): [],
+    (1000, 900, False): [("drop", "frames")],
+    (600, 1100, False): [("drop", "frames"), ("drop", "stages")],
+    (600, 1100, True): [("drop", "frames")],
+}
+
+
+@pytest.mark.parametrize("frames_pool,other,held", list(FIRST_CALL_DROPS))
+def test_first_call_that_does_not_fit_frees_frames_then_stage_graphs(
+        frames_pool, other, held, monkeypatch):
+    """Three frames share a pool, all of it free between calls; where the
+    card has fewer free bytes than a new signature's capture needs, the
+    frame family goes as a whole, and then, if the capture still does not
+    fit, every stage graph, unless a hold holds one."""
+    dev = torch.device("cpu")
+    card = graphs_card(monkeypatch, total=2500, other=other, peak=600,
+                       output=50)
+    card.held("frames", 3, frames_pool, dev=dev)
+    card.held("stages", 2, 500)
+    stages = graphs.STAGES
+    left, right = _on_card(5, 5), _on_card(5, 5)
+    with stages.hold():
+        if held:
+            stages._held.add("stages 0")
+        graph = graphs.CACHE.first_call(_frame_fn, (left, right),
+                                        (TINY_CONFIG,), dev)
+    drops = FIRST_CALL_DROPS[frames_pool, other, held]
+    assert [e for e in card.events if e[0] == "drop"] == drops
+    warm, cap = (e for e in card.events if e[0] != "drop")
+    assert (warm[0], cap[0]) == ("warm_up", "capture")
+    assert warm[1].reserved == frames_pool        # it fitted in the pool
+    assert (cap[1] is warm[1]) == (not drops)
+    assert len(graphs.CACHE.graphs) == (0 if drops else 3)
+    assert len(stages.graphs) == (0 if ("drop", "stages") in drops else 2)
+    if not held:
+        pool_need = 0 if frames_pool > 750 else 750 - frames_pool
+        assert cap[3] >= 250 + (750 if drops else pool_need)
+    assert [t.shape for t in graph.inputs] == [left.shape, right.shape]
+    assert graph.inputs[0] is not left and graph.done == "event"
+
+
+@pytest.mark.parametrize("pool_free", [0, 300, 450, 2000])
+def test_new_signature_needs_only_what_it_adds_above_the_pool(pool_free,
+                                                              monkeypatch):
+    """A first call's need (make_room's) is the capture's pool (the warm-up's
+    peak of 400 and POOL_MARGIN of it) above the bytes free in the shared
+    pool after the warm-up, the clones of its result (100) and its new
+    static inputs (two of 64 bytes)."""
+    dev = torch.device("cpu")
+    graphs_card(monkeypatch, total=10**6, peak=400, output=100).held(
+        "frames", 1, pool_free, dev=dev)
+    needs = []
+    make_room = graphs.make_room
+
+    def recording(need, device):
+        needs.append(need())
+        make_room(need, device)
+
+    monkeypatch.setattr(graphs, "make_room", recording)
+    graphs.CACHE.first_call(_frame_fn, (_on_card(4, 4), _on_card(4, 4)),
+                            (TINY_CONFIG,), dev)
+    free = max(pool_free, 400)                    # the warm-up's blocks
+    assert needs == [max(0, 400 + int(400 * graphs.POOL_MARGIN) - free)
+                     + 100 + 2 * 64]
+    assert len(graphs.CACHE.graphs) == 1          # the held one
 
 
 def test_capture_need_counts_the_pool_margin_and_the_clones():
@@ -169,86 +251,82 @@ def test_capture_need_counts_the_pool_margin_and_the_clones():
 
 
 def test_make_room_evicts_the_oldest_until_the_need_fits(monkeypatch):
-    cache = graphs.GraphCache()
-    card = _Card(cache, total=100, other=10)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    monkeypatch.setattr(torch.cuda, "mem_get_info", card.mem_get_info)
-    for k, size in zip("abc", (30, 20, 25)):
-        cache.put(k, _Frame(size))
-    assert cache.largest_footprint() == 30
-    cache.make_room(15, "cuda")                   # 15 free: nothing goes
-    assert list(cache.frames) == ["a", "b", "c"]
-    cache.make_room(40, "cuda")                   # a goes (45 free)
-    assert list(cache.frames) == ["b", "c"]
-    cache.make_room(1000, "cuda")                 # more than the card
-    assert not cache.frames
-    assert graphs.GraphCache().largest_footprint() == 0
+    """make_room frees families, never one graph: nothing while the need
+    fits, then every frame at once, then every stage graph; the need is
+    asked again after each drop."""
+    card = graphs_card(monkeypatch, total=1000, other=100)
+    card.held("frames", 3, 300)
+    card.held("stages", 2, 200)
+    asked = []
+
+    def need(n):
+        return lambda: asked.append(n) or n
+
+    graphs.make_room(need(400), "cuda")           # 400 free: nothing goes
+    assert len(graphs.CACHE.graphs) == 3 and asked == [400]
+    graphs.make_room(need(600), "cuda")           # the frames go: 700 free
+    assert not graphs.CACHE.graphs and not graphs.CACHE.pools
+    assert len(graphs.STAGES.graphs) == 2 and asked == [400, 600, 600]
+    graphs.make_room(need(10**6), "cuda")         # more than the card
+    assert not graphs.STAGES.graphs and card.free() == 900
+    assert card.events == [("drop", "frames"), ("drop", "stages")]
+    assert not graphs.free_memory()
 
 
 def test_first_call_makes_room_before_the_warm_up_and_the_capture(
         monkeypatch):
-    """Four held frames of 20 on a card of 100 with 25 in use besides (the
-    caller's last result, say): for a new signature, a goes for the count
-    and b for the largest footprint before the warm-up (peak 26, result
-    6); c goes before the capture, which needs 26 + 6 + 6."""
-    cache = graphs.GraphCache()
-    card = _Card(cache, total=100, other=25)
-    events = []
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    monkeypatch.setattr(torch.cuda, "mem_get_info", card.mem_get_info)
-    evict = cache.evict_oldest
+    """The warm-up runs on the caller's own tensors in the frames' pool on
+    the family's stream (its memory is the pool's own: no room is made for
+    it outside); room for the capture is made after it; the capture runs
+    in the same pool, on the same stream, on this signature's own copies
+    of the tensors; the outputs become borrowed views of what the capture
+    wrote and the event is the family's."""
+    card = graphs_card(monkeypatch, total=10**6, peak=26, output=6,
+                       run=True)
+    warmed, made, wrote = [], [], []
+    warm_up, make_room = card.warm_up, graphs.make_room
+    monkeypatch.setattr(graphs, "warm_up", lambda fn, inputs, *args: (
+        warmed.append(inputs), warm_up(fn, inputs, *args))[1])
+    monkeypatch.setattr(graphs, "make_room", lambda need, dev: (
+        made.append(len(card.events)), make_room(need, dev)))
 
-    def evict_oldest():
-        events.append(("evict", next(iter(cache.frames))))
-        evict()
+    def fn(left, right, k):
+        wrote.append(left + k * right)
+        return wrote[-1], (right,)
 
-    def warm_up(fn, inputs, statics, dev):
-        events.append(("warm_up", card.mem_get_info()[0]))
-        return {"warmup_peak_bytes": 26, "output_bytes": 6, "launches": {}}
-
-    def capture(fn, inputs, statics, dev, warm):
-        events.append(("capture", card.mem_get_info()[0]))
-        return _Frame(38)
-
-    monkeypatch.setattr(graphs, "POOL_MARGIN", 0.25)
-    monkeypatch.setattr(cache, "evict_oldest", evict_oldest)
-    monkeypatch.setattr(graphs, "warm_up", warm_up)
-    monkeypatch.setattr(graphs, "capture", capture)
-    for k in "abcd":
-        cache.put(k, _Frame(20))
-    assert cache.first_call(None, (torch.zeros(2),), (), "cuda").footprint \
-        == 38
-    assert events == [("evict", "a"), ("evict", "b"), ("warm_up", 35),
-                      ("evict", "c"), ("capture", 55)]
-    assert list(cache.frames) == ["d"]
+    left, right = torch.rand(4, 5), torch.rand(4, 5)
+    dev = torch.device("cpu")
+    graph = graphs.CACHE.first_call(fn, (left, right), (2,), dev)
+    assert [e[0] for e in card.events] == ["warm_up", "capture"]
+    assert made == [1]                            # between the two
+    assert warmed[0][0] is left and warmed[0][1] is right
+    pool = graphs.CACHE.pools[dev, False]
+    assert card.events[0][1:3] == (pool, "stream") == card.events[1][1:3]
+    assert graph.inputs[0] is not left and torch.equal(graph.inputs[0], left)
+    assert graph.output[0].data_ptr() == wrote[0].data_ptr()
+    assert graph.output[0] is not wrote[0]
+    assert graph.done == "event" and graphs.CACHE.done[dev] == "event"
+    graphs.CACHE.graphs["k"] = graph
+    assert graphs.CACHE.stats() == {"graphs": 1, "warmup_s": 0.5,
+                                    "capture_s": 0.25, "pool_bytes": 26,
+                                    "input_bytes": 2 * 4 * 5 * 4}
 
 
 def test_warm_up_out_of_memory_evicts_and_runs_again(monkeypatch):
-    """A warm-up that runs out of memory is run again with one graph fewer,
-    while one is left; with none left the error stands."""
-    cache = graphs.GraphCache()
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (
-        10**12, 10**12))
-    runs = []
-
-    def warm_up(fn, inputs, statics, dev):
-        runs.append(list(cache.frames))
-        if len(cache.frames) > 1:
-            raise torch.cuda.OutOfMemoryError("out of memory")
-        return {"warmup_peak_bytes": 1, "output_bytes": 1, "launches": {}}
-
-    monkeypatch.setattr(graphs, "warm_up", warm_up)
-    monkeypatch.setattr(graphs, "capture", lambda *args: "captured")
-    for k in "abc":
-        cache.put(k, _Frame(1))
-    assert cache.first_call(None, (torch.zeros(1),), (), "cuda") == "captured"
-    assert runs == [["a", "b", "c"], ["b", "c"], ["c"]]
-    monkeypatch.setattr(graphs, "warm_up", lambda *args: (_ for _ in ()).throw(
-        torch.cuda.OutOfMemoryError("out of memory")))
+    """A warm-up that runs out of memory drops the frame family and runs
+    again, then the stage graphs and runs again; with nothing left to drop
+    the error stands."""
+    card = graphs_card(monkeypatch, total=10**6, peak=1, output=1)
+    card.held("frames", 2, 10)
+    card.held("stages", 1, 10)
+    card.oom = lambda: bool(graphs.STAGES.graphs)
+    dev = torch.device("cpu")
+    graphs.CACHE.first_call(_frame_fn, (torch.zeros(1),), (), dev)
+    assert [e[0] for e in card.events] == ["warm_up", "drop", "warm_up",
+                                           "drop", "warm_up", "capture"]
+    card.oom = lambda: True
     with pytest.raises(torch.cuda.OutOfMemoryError):
-        cache.first_call(None, (torch.zeros(1),), (), "cuda")
-    assert not cache.frames
+        graphs.CACHE.first_call(_frame_fn, (torch.ones(1),), (), dev)
 
 
 def test_models_export_the_eager_chains():

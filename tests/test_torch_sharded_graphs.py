@@ -40,6 +40,8 @@ from stereo_matchin_tpu_torch.parallel import distributed, dryrun
 from stereo_matchin_tpu_torch.parallel.dryrun import Case, sharded_maps
 from stereo_matchin_tpu_torch.utils import graphs
 
+from .torch_support import FakeCard
+
 # parallel/__init__ exports a function named wta_sharded: take the module.
 twta = importlib.import_module("stereo_matchin_tpu_torch.parallel.wta_sharded")
 MESHES = [(1, 2, 2), (1, 1, 4), (2, 2, 1)]
@@ -269,22 +271,18 @@ def test_stacked_summaries_round_trip():
 # --- resident steps, the card's calls faked -----------------------------------
 
 def _fake_card(monkeypatch, events):
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (10**9,
-                                                                     10**9))
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: ("pool",))
-    monkeypatch.setattr(torch.cuda, "Event", lambda: "shared event")
-    monkeypatch.setattr(graphs, "warm_up", lambda fn, inputs, statics, dev: {
-        "warmup_peak_bytes": 400, "output_bytes": 100, "launches": {},
-        "warmup_s": 0.5})
+    """The card's calls faked (FakeCard); each capture also appends
+    ("capture", its inputs, fn's output, its pool) to events."""
+    card = FakeCard(monkeypatch, total=10**9, peak=400, output=100, run=True)
+    capture = card.capture
 
-    def capture(fn, inputs, statics, dev, warm, pool=None):
-        out = fn(*inputs)
-        events.append(("capture", list(inputs), out))
-        return types.SimpleNamespace(output=out, done=None,
-                                     stats={"pool_bytes": 1000})
+    def recording(fn, inputs, statics, dev, warm, pool, stream):
+        graph = capture(fn, inputs, statics, dev, warm, pool, stream)
+        events.append(("capture", list(inputs), graph.output, pool))
+        return graph
 
-    monkeypatch.setattr(graphs, "capture", capture)
+    monkeypatch.setattr(graphs, "capture", recording)
+    return card
 
 
 @graphs.resident
@@ -348,21 +346,11 @@ def test_load_copies_only_what_the_graph_does_not_read_in_place(monkeypatch):
 
 def test_resident_steps_capture_into_a_pool_of_their_own(monkeypatch):
     """A resident step's outputs must lie where no other stage graph ever
-    writes: it captures into the device's pool of resident steps, every
-    other step into the shared pool, whichever is captured first."""
+    writes: it warms up and captures in the device's pool of resident
+    steps, every other step in the shared pool, whichever is captured
+    first."""
     events = []
-    _fake_card(monkeypatch, events)
-    handles = iter(range(100))
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
-                        lambda: ("pool", next(handles)))
-    pools = []
-    capture = graphs.capture
-
-    def recording(fn, inputs, statics, dev, warm, pool=None):
-        pools.append(pool)
-        return capture(fn, inputs, statics, dev, warm, pool)
-
-    monkeypatch.setattr(graphs, "capture", recording)
+    card = _fake_card(monkeypatch, events)
     stages = graphs.StageGraphs()
     x, tile = torch.rand(4, 5), torch.rand(4, 5)
     stages.first_call("round", _round_step, (tile, x, 3.0), [tile, x], "dev")
@@ -370,7 +358,11 @@ def test_resident_steps_capture_into_a_pool_of_their_own(monkeypatch):
     stages.first_call("round", _round_step, (tile, w.output[0], 3.0),
                       [tile, w.output[0]], "dev", [False, True])
     stages.first_call("weights", _weights_step, (x, 5.0), [x], "dev")
-    assert pools[0] == pools[2] != pools[1] == pools[3]
+    pools = [e[3] for e in events]
+    assert pools[0] is pools[2] and pools[1] is pools[3]
+    assert pools[0] is not pools[1]
+    warmed = [e[1] for e in card.events if e[0] == "warm_up"]
+    assert warmed == pools
     assert stages.pools == {("dev", False): pools[0], ("dev", True): pools[1]}
     stages.clear()
     assert not stages.pools

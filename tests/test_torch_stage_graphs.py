@@ -11,7 +11,6 @@ JAX weights.  The captures themselves run on the card
 from __future__ import annotations
 
 import inspect
-import types
 from functools import partial
 
 import jax.numpy as jnp
@@ -31,7 +30,7 @@ from stereo_matchin_tpu_torch.utils import graphs, profiling, replay_stage
 
 from .test_torch_asw_debug import REDS, STACKS, _scene, codes, red_mask
 from .test_torch_pipeline_asw import jax_strips
-from .torch_support import TINY, config_pair, t, unorm8_pair
+from .torch_support import FakeCard, TINY, config_pair, t, unorm8_pair
 
 
 def _pair(H=24, W=32, seed=0):
@@ -244,125 +243,72 @@ def test_eager_chains_keep_the_untimed_runner(monkeypatch):
 
 # --- first call and memory, the card's calls faked ---------------------------
 
-class _Card:
-    """mem_get_info of a card of `total` bytes with `used` in use."""
-
-    def __init__(self, total, used):
-        self.total, self.used = total, used
-
-    def mem_get_info(self, device=None):
-        return self.total - self.used, self.total
-
-
-def _fake_card(monkeypatch, card, events):
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    monkeypatch.setattr(torch.cuda, "mem_get_info", card.mem_get_info)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: ("pool",))
-    monkeypatch.setattr(torch.cuda, "Event", lambda: "shared event")
-
-    def warm_up(fn, inputs, statics, dev):
-        events.append(("warm_up", inputs, statics))
-        return {"warmup_peak_bytes": 400, "output_bytes": 100, "launches": {},
-                "warmup_s": 0.5}
-
-    def capture(fn, inputs, statics, dev, warm, pool=None):
-        events.append(("capture", inputs, pool, card.mem_get_info()[0]))
-        out = fn(*inputs)
-        return types.SimpleNamespace(output=out, done=None, stats={
-            "warmup_s": warm["warmup_s"], "capture_s": 0.25,
-            "pool_bytes": 1000})
-
-    monkeypatch.setattr(graphs, "warm_up", warm_up)
-    monkeypatch.setattr(graphs, "capture", capture)
-
-
 def test_first_call_warms_up_on_the_callers_tensors_then_captures_on_slots(
         monkeypatch):
-    """The warm-up runs on the caller's own tensors; the capture runs on the
-    slots, into the shared pool, after room is made for the capture's need
-    and the new slots; the graph's outputs become borrowed views and its
-    event the runner's."""
-    events = []
-    card = _Card(total=10**6, used=0)
-    _fake_card(monkeypatch, card, events)
+    """The warm-up runs on the caller's own tensors, in the shared pool on
+    the family's stream; the capture runs on the slots, into the same pool
+    on the same stream, after room is made for the capture's need above the
+    pool's free bytes and the new slots; the graph's outputs become
+    borrowed views and its event the runner's."""
+    card = FakeCard(monkeypatch, total=10**6, peak=400, output=100, run=True)
     stages = graphs.StageGraphs()
-    make_room = stages.make_room
-    monkeypatch.setattr(stages, "make_room", lambda need, dev: (
-        events.append(("make_room", need)), make_room(need, dev)))
+    needs = []
+    make_room = graphs.make_room
+    monkeypatch.setattr(graphs, "make_room", lambda need, dev: (
+        needs.append((len(card.events), need())), make_room(need, dev)))
+    warmed = []
+    warm_up = card.warm_up
+    monkeypatch.setattr(graphs, "warm_up", lambda fn, inputs, *args: (
+        warmed.append(inputs), warm_up(fn, inputs, *args))[1])
     a, b = torch.rand(4, 5), torch.rand(4, 5)
     graph = stages.first_call("aggr", lambda x, y, k: x + k * y, (a, b, 2),
                               [a, b], "dev")
-    assert events[0][0] == "warm_up" and events[0][1][0] is a
-    assert events[0][1][1] is b and events[0][2] == ()
-    # The pool (peak 400 and POOL_MARGIN of it), the clones (100) and two
-    # new slots of 80 bytes.
-    assert events[1] == ("make_room", 400 + int(400 * graphs.POOL_MARGIN)
-                         + 100 + 2 * 4 * 5 * 4)
-    assert events[2][0] == "capture" and events[2][2] == ("pool",)
-    inputs = events[2][1]
+    assert warmed[0][0] is a and warmed[0][1] is b
+    pool = stages.pools["dev", False]
+    assert [e[:3] for e in card.events] == [("warm_up", pool, "stream"),
+                                            ("capture", pool, "stream")]
+    # The pool's need above its 400 free bytes (POOL_MARGIN of the peak),
+    # the clones (100) and two new slots of 80 bytes, between the two.
+    assert needs == [(1, int(400 * graphs.POOL_MARGIN) + 100 + 2 * 4 * 5 * 4)]
+    inputs = graph.inputs
     assert [s for s in inputs] == [stages.slots[k] for k in
                                    graphs.slot_keys([a, b])]
     assert inputs[0] is not a and inputs[0].shape == a.shape
-    assert graph.done == "shared event" and stages.done["dev"] is graph.done
+    assert graph.done == "event" and stages.done["dev"] is graph.done
     assert graph.output.data_ptr() != 0
     assert stages.stats() == {"graphs": 0, "warmup_s": 0, "capture_s": 0,
-                              "pool_bytes": 0, "input_bytes": 2 * 4 * 5 * 4}
+                              "pool_bytes": 400, "input_bytes": 2 * 4 * 5 * 4}
     stages.graphs["k"] = graph
     assert stages.stats()["graphs"] == 1
-    assert stages.stats()["pool_bytes"] == 1000
+    assert stages.stats()["capture_s"] == 0.25
 
 
 def test_make_room_frees_the_oldest_frames_then_every_stage_graph(
         monkeypatch):
     """Before a capture that needs more than the card has free, the frames
-    go oldest first, then all stage graphs at once (they share a pool)."""
-    evicted = []
-    card = _Card(total=1000, used=900)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    monkeypatch.setattr(torch.cuda, "mem_get_info", card.mem_get_info)
-    frames = graphs.GraphCache()
-    monkeypatch.setattr(graphs, "CACHE", frames)
-    for k in "ab":
-        frames.put(k, k)
-
-    def evict_oldest():
-        evicted.append(next(iter(frames.frames)))
-        frames.frames.popitem(last=False)
-        card.used -= 100
-
-    monkeypatch.setattr(frames, "evict_oldest", evict_oldest)
-    stages = graphs.StageGraphs()
-    stages.graphs = {"s1": 1, "s2": 2}
+    go, all at once (they share a pool), then all stage graphs at once."""
+    card = FakeCard(monkeypatch, total=1000, other=400)
+    card.held("frames", 2, 200)
+    card.held("stages", 2, 300)
+    stages = graphs.STAGES
     stages.slots = {"slot": torch.zeros(1)}
-    stages.make_room(250, "dev")                  # a and b go: 300 free
-    assert evicted == ["a", "b"] and stages.graphs
-    stages.make_room(350, "dev")                  # the stage graphs go
+    graphs.make_room(lambda: 250, "dev")          # the frames go: 300 free
+    assert card.events == [("drop", "frames")] and stages.graphs
+    graphs.make_room(lambda: 350, "dev")          # the stage graphs go
     assert not stages.graphs and not stages.slots and not stages.pools
-    assert not stages.free_memory()
+    assert not graphs.free_memory()
 
 
 def test_warm_up_out_of_memory_frees_and_runs_again(monkeypatch):
-    events = []
-    card = _Card(total=10**6, used=0)
-    _fake_card(monkeypatch, card, events)
-    runs = []
-    warm = graphs.warm_up
-
-    def warm_up(fn, inputs, statics, dev):
-        runs.append(len(stages.graphs))
-        if stages.graphs:
-            raise torch.cuda.OutOfMemoryError("out of memory")
-        return warm(fn, inputs, statics, dev)
-
-    monkeypatch.setattr(graphs, "warm_up", warm_up)
-    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache())
-    stages = graphs.StageGraphs()
-    stages.graphs = {"old": 1}
+    card = FakeCard(monkeypatch, total=10**6, peak=1, output=1)
+    card.held("stages", 1, 10)
+    card.oom = lambda: bool(graphs.STAGES.graphs)
+    stages = graphs.STAGES
     a = torch.rand(3)
     stages.first_call("median", torch.neg, (a,), [a], "dev")
-    assert runs == [1, 0]
-    monkeypatch.setattr(graphs, "warm_up", lambda *args: (_ for _ in ()).throw(
-        torch.cuda.OutOfMemoryError("out of memory")))
+    assert [e[0] for e in card.events] == ["warm_up", "drop", "warm_up",
+                                           "capture"]
+    card.oom = lambda: True
     with pytest.raises(torch.cuda.OutOfMemoryError):
         stages.first_call("median", torch.neg, (a,), [a], "dev")
 
@@ -441,4 +387,4 @@ def test_debug_entry_on_cpu_is_its_eager_chain_and_jax_on_jax_weights(
                                       codes(np.asarray(getattr(ref.result,
                                                                f))),
                                       err_msg=f)
-    assert not graphs.CACHE.frames
+    assert not graphs.CACHE.graphs

@@ -7,6 +7,7 @@ are built for each side from the same keywords (`config_pair`).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import pathlib
 import re
@@ -426,3 +427,112 @@ def shard_wta_inputs(rng, D: int, shards: int, H: int, W: int,
 
     maps = (value(), denom(), value(), denom())
     return cost, maps, rng.integers(0, D, (H, W)).astype(np.int32)
+
+
+# --- utils/graphs.py's memory rules on the CPU, the card's calls faked -------
+
+class FakePool:
+    """A torch.cuda.MemPool as utils/graphs.py's memory rules see it: its
+    `reserved` bytes, `free` of them."""
+
+    count = 0
+
+    def __init__(self, reserved=0, free=None):
+        FakePool.count += 1
+        self.id = (0, FakePool.count)
+        self.reserved = reserved
+        self.free = reserved if free is None else free
+
+
+class FakeGraph:
+    """A captured graph as the families see it: a call returns its output
+    and counts itself."""
+
+    def __init__(self, inputs, output, stats):
+        self.inputs, self.output, self.stats = inputs, output, stats
+        self.done, self.calls = None, 0
+
+    def __call__(self, tensors):
+        self.calls += 1
+        return self.output
+
+
+class FakeCard:
+    """The card's memory calls faked for utils/graphs.py: a card of `total`
+    bytes with `other` in use besides the pools of the graph families,
+    whose globals (CACHE, STAGES) become fresh families.  A warm-up (of
+    `peak` bytes and a result of `output` bytes) grows its pool to the peak
+    and leaves it free, or raises OutOfMemoryError where the card cannot
+    hold the growth, or while `oom` says so; a capture runs fn on its
+    inputs where `run` is set.  `events` records ("warm_up" or "capture",
+    the pool, the stream, the card's free bytes) and ("drop", family) in
+    order."""
+
+    def __init__(self, monkeypatch, total, other=0, peak=0, output=0,
+                 run=False):
+        from stereo_matchin_tpu_torch.utils import graphs
+
+        self.graphs = graphs
+        self.total, self.other, self.peak, self.output = (total, other, peak,
+                                                          output)
+        self.run, self.oom, self.events = run, lambda: False, []
+        frames, stages = graphs.GraphCache(), graphs.StageGraphs()
+        for name, family in (("frames", frames), ("stages", stages)):
+            clear = family.clear
+            monkeypatch.setattr(family, "clear", functools.partial(
+                self._clear, name, clear))
+        monkeypatch.setattr(graphs, "CACHE", frames)
+        monkeypatch.setattr(graphs, "STAGES", stages)
+        monkeypatch.setattr(torch.cuda, "MemPool", FakePool)
+        monkeypatch.setattr(torch.cuda, "Stream", lambda dev=None: "stream")
+        monkeypatch.setattr(torch.cuda, "Event", lambda: "event")
+        monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+        monkeypatch.setattr(torch.cuda, "device",
+                            lambda dev: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "mem_get_info", self.mem_get_info)
+        monkeypatch.setattr(graphs, "pool_state", lambda p: (0, 0) if p is None
+                            else (p.reserved, p.free))
+        monkeypatch.setattr(graphs, "warm_up", self.warm_up)
+        monkeypatch.setattr(graphs, "capture", self.capture)
+
+    def _clear(self, name, clear):
+        if self.families()[name].graphs:
+            self.events.append(("drop", name))
+        clear()
+
+    def families(self) -> dict:
+        return {"frames": self.graphs.CACHE, "stages": self.graphs.STAGES}
+
+    def free(self) -> int:
+        return self.mem_get_info()[0]
+
+    def mem_get_info(self, device=None):
+        held = sum(p.reserved for f in self.families().values()
+                   for p in f.pools.values())
+        return self.total - self.other - held, self.total
+
+    def warm_up(self, fn, inputs, statics, dev, pool, stream):
+        self.events.append(("warm_up", pool, stream, self.free()))
+        grow = max(0, self.peak - pool.free)
+        if self.oom() or grow > self.free():
+            raise torch.cuda.OutOfMemoryError("out of memory")
+        pool.reserved += grow
+        pool.free += grow
+        return {"warmup_peak_bytes": self.peak, "output_bytes": self.output,
+                "launches": {}, "warmup_s": 0.5}
+
+    def capture(self, fn, inputs, statics, dev, warm, pool, stream):
+        self.events.append(("capture", pool, stream, self.free()))
+        out = fn(*inputs, *statics) if self.run else "output"
+        return FakeGraph(inputs, out, {"warmup_s": warm["warmup_s"],
+                                       "capture_s": 0.25})
+
+    def held(self, name: str, graphs: int, reserved: int, dev="dev",
+             resident=False) -> None:
+        """Give family `name` `graphs` graphs in a pool of `reserved` bytes,
+        all free (a captured family's outputs are borrowed)."""
+        family = self.families()[name]
+        family.pools[dev, resident] = FakePool(reserved)
+        for k in range(graphs):
+            family.graphs[f"{name} {k}"] = FakeGraph((), "output", {
+                "warmup_s": 0.5, "capture_s": 0.25})
