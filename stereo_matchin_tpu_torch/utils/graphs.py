@@ -59,6 +59,15 @@ Calls may come from different streams: each call waits for the previous
 call's replay and clones, of any graph of its family on its device, before
 it overwrites the static inputs; a first call waits for the whole card.
 
+Spans and counters (`utils/profiling.py`): while a torch.profiler session
+records, each call of `replay` on CUDA tensors leaves an `entry` span and
+its `entry.launch` child (the graph's replay); while none records, the
+call reads one flag.  The frame cache counts, whatever records, its first
+calls and their seconds of warm-up, making room and capture (the timers
+of `CapturedFrame.stats`), and the high-water mark of its pools' and
+static inputs' bytes, read after each capture and before `free_memory`
+drops the frames (`profiling.COUNTERS`).
+
 Stages captured as CUDA graphs: the port's counterpart of the JAX
 package's stage-level jits (`bench/harness.py` `_asw_stage_jits`,
 `models/cross_based.py` `_arms_stage` .. `_median_stage`).  `STAGES` is a
@@ -150,6 +159,7 @@ import time
 import torch
 
 from .. import kernels
+from . import profiling
 
 # A pool's bytes above its warm-up's peak: 4-17% on the card (PERF.md,
 # section 5), so a quarter.
@@ -242,7 +252,8 @@ def capture_need(warm: dict, pool_free: int = 0) -> int:
 class CapturedFrame:
     """One signature's graph, its static input and output tensors, the
     launches of one frame, what its first call measured (seconds of
-    warm-up and of capture, the warm-up's peak bytes, the result's bytes),
+    warm-up, of making room and of capture, the warm-up's peak bytes, the
+    result's bytes),
     and `done`, its family's event after the last call's clones on its
     device."""
 
@@ -260,8 +271,16 @@ class CapturedFrame:
             if buf.data_ptr() != t.data_ptr():
                 buf.copy_(t)
 
-    def replay(self) -> None:
-        self.graph.replay()
+    def replay(self, timeline=None) -> None:
+        """The graph's replay, a `launch` child span of `timeline` (a
+        profiling.Timeline, or None while no profiler records), then its
+        launches counted."""
+        if timeline is None:
+            self.graph.replay()
+        else:
+            start = time.perf_counter_ns()
+            self.graph.replay()
+            timeline.child("launch", start)
         add_launches(kernels.LAUNCHES, self.launches)
 
     def result(self):
@@ -271,9 +290,9 @@ class CapturedFrame:
         self.done.record(torch.cuda.current_stream())
         return out
 
-    def __call__(self, tensors):
+    def __call__(self, tensors, timeline=None):
         self.load(tensors)
-        self.replay()
+        self.replay(timeline)
         return self.result()
 
 
@@ -330,6 +349,7 @@ def free_memory() -> bool:
     holds one of them; False when there is nothing left to free."""
     with _LOCK:
         if CACHE.graphs:
+            CACHE.count_held()
             CACHE.clear()
             return True
         return STAGES.drop()
@@ -378,10 +398,13 @@ class GraphFamily:
             except torch.cuda.OutOfMemoryError:
                 if not free_memory():
                     raise
+        t0 = time.perf_counter()
         make_room(lambda: capture_need(warm, pool_state(
             self.pools.get((dev, resident)))[1]) + new_bytes(), dev)
+        make_room_s = time.perf_counter() - t0
         graph = capture(fn, inputs(), statics, dev, warm,
                         self.pool(dev, resident), self.stream(dev))
+        graph.stats["make_room_s"] = make_room_s
         if dev not in self.done:
             self.done[dev] = torch.cuda.Event()
         graph.done = self.done[dev]
@@ -425,9 +448,17 @@ class GraphCache(GraphFamily):
         graph.output = map_tensors(borrowed, graph.output)
         return graph
 
+    def count_held(self) -> None:
+        """Raise the cache's high-water mark (profiling.COUNTERS) to the
+        bytes it holds: its pools' and its static inputs'."""
+        st = self.stats()
+        profiling.COUNTERS["frames"].held(st["pool_bytes"]
+                                          + st["input_bytes"])
+
     def __call__(self, fn, tensors, statics):
         if not any(t.is_cuda for t in tensors):
             return fn(*tensors, *statics)
+        timeline = profiling.SPANS.open("entry")
         key = signature(fn, tensors, statics)
         dev = next(t.device for t in tensors if t.is_cuda)
         with _LOCK, torch.cuda.device(dev):
@@ -435,7 +466,12 @@ class GraphCache(GraphFamily):
             if frame is None:
                 frame = self.first_call(fn, tensors, statics, dev)
                 self.graphs[key] = frame
-            return frame(tensors)
+                profiling.COUNTERS["frames"].first_call(frame.stats)
+                self.count_held()
+            out = frame(tensors, timeline)
+        if timeline is not None:
+            timeline.close()
+        return out
 
 
 CACHE = GraphCache()

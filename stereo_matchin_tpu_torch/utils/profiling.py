@@ -18,6 +18,38 @@ The reference's observability is OpenCL event profiling feeding
   * `stage_device_ms` — the device time of a profiled frame by stage, from
     its Chrome trace (scripts/profile_frame.py --stages): each activity
     goes to its range's device-side extent.
+  * `SPANS` — the spans of the frame entry (`utils/graphs.py`), kept in
+    memory while a torch.profiler session records (`SpanRecorder`).
+  * `COUNTERS` — the frame cache's counters for the life of the process
+    (`GraphCounters`).
+
+Spans.  Each call of `graphs.replay` on CUDA tensors, while a profiler
+records, leaves one `entry` span, from the call (after the check for CUDA
+tensors) until the lock and the device context are left: the signature's
+lookup, on a first call its warm-up, making room and capture, the copies
+into the static inputs, the launch and the clones.  Its one child,
+`entry.launch`, is the graph's replay: one `cudaGraphLaunch`, and as
+little around it as can be, since the benchmark maps the spans onto its
+trace by these calls.  A span is (name, start, end, id, parent, entry):
+`time.perf_counter_ns()` at both ends, its own id, its parent's id (None
+for the entry) and its entry's id.  Recording follows the profiler's own
+flag (`torch.autograd.profiler._is_profiler_enabled`), so any
+torch.profiler session turns it on, `trace` and a CUDA-only one
+included; while it is off a span site reads that flag and nothing else.
+The store keeps at most `SpanRecorder.limit` spans and counts the spans
+of the entries it turned away (`dropped`).  The benchmark reads the spans
+of its traced stretch (`benchmark/program_spans.py`: `entry_idle_pct`
+from the entries, `launch_idle_pct` from their launches).
+
+Counters.  Always on, cumulative for the life of the process, and kept
+here, so `utils.clear_caches()` leaves them: the frame cache's
+(`COUNTERS["frames"]`) first calls, their seconds of warm-up, of making
+room and of capture (the timers of `CapturedFrame.stats`, added up), and
+the high-water mark of the cache's bytes (its pools' reserved bytes and
+its static inputs), read after each capture and before
+`graphs.free_memory` drops the frames, never on a replay.  The
+benchmark reads the first-call seconds (`first_call_s`) and the
+high-water mark (`cache_reserved_gb`).
 
 The JAX package's `utils/compilation_cache.py` has no counterpart: the
 port compiles only its CUDA sources, and `kernels/_build.py` keeps the
@@ -28,11 +60,14 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def call_stage(name: str, fn, *args):
@@ -169,3 +204,96 @@ def stage_device_ms(events, stages) -> dict:
         ms, n = by_stage.get(name, (0.0, 0))
         by_stage[name] = (ms + e["dur"] / 1e3, n + 1)
     return by_stage
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int           # time.perf_counter_ns()
+    end_ns: int
+    id: int
+    parent: Optional[int]   # None for an entry
+    entry: int              # the id of the entry span it belongs to
+
+
+class Timeline:
+    """One entry call's spans while they are recorded: `child(name,
+    start)` ends a child span begun at `start` (a perf_counter_ns),
+    `close()` ends the entry and hands its spans to the recorder."""
+
+    __slots__ = ("recorder", "name", "start", "children")
+
+    def __init__(self, recorder: "SpanRecorder", name: str):
+        self.recorder, self.name = recorder, name
+        self.children = []
+        self.start = time.perf_counter_ns()
+
+    def child(self, name: str, start: int) -> None:
+        self.children.append((name, start, time.perf_counter_ns()))
+
+    def close(self) -> None:
+        end = time.perf_counter_ns()
+        self.recorder.add(self.name, self.start, end, self.children)
+
+
+class SpanRecorder:
+    """Spans kept in memory, at most `limit` of them: an entry that would
+    pass the limit is turned away whole, its spans counted in `dropped`."""
+
+    def __init__(self, limit: int = 65536):
+        self.limit = limit
+        self.spans = []
+        self.dropped = 0
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()
+
+    def open(self, name: str) -> Optional[Timeline]:
+        """A Timeline for one call of `name` while a profiler records, else
+        None (the flag read is the whole cost)."""
+        if not _autograd_profiler._is_profiler_enabled:
+            return None
+        return Timeline(self, name)
+
+    def add(self, name, start, end, children) -> None:
+        with self._lock:
+            if len(self.spans) + 1 + len(children) > self.limit:
+                self.dropped += 1 + len(children)
+                return
+            entry = next(self._ids)
+            self.spans.append(Span(name, start, end, entry, None, entry))
+            self.spans.extend(Span(f"{name}.{child}", s, e, next(self._ids),
+                                   entry, entry)
+                              for child, s, e in children)
+
+    def clear(self) -> None:
+        with self._lock:
+            self.spans = []
+            self.dropped = 0
+
+
+SPANS = SpanRecorder()
+
+
+class GraphCounters:
+    """The frame cache's counts for the life of the process (the module's
+    docstring): its first calls, their seconds of warm-up, making room and
+    capture, and `peak_bytes`, the high-water mark of its pools' reserved
+    bytes and static inputs."""
+
+    def __init__(self):
+        self.first_calls = self.peak_bytes = 0
+        self.warmup_s = self.make_room_s = self.capture_s = 0.0
+
+    def first_call(self, stats: dict) -> None:
+        """Count a first call and its CapturedFrame.stats' seconds."""
+        self.first_calls += 1
+        self.warmup_s += stats["warmup_s"]
+        self.make_room_s += stats["make_room_s"]
+        self.capture_s += stats["capture_s"]
+
+    def held(self, nbytes: int) -> None:
+        """The cache holds `nbytes` now: raise the high-water mark."""
+        self.peak_bytes = max(self.peak_bytes, nbytes)
+
+
+# Graph family -> its counters: the frame cache's ("frames").
+COUNTERS: Dict[str, GraphCounters] = {"frames": GraphCounters()}

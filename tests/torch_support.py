@@ -452,7 +452,7 @@ class FakeGraph:
         self.inputs, self.output, self.stats = inputs, output, stats
         self.done, self.calls = None, 0
 
-    def __call__(self, tensors):
+    def __call__(self, tensors, timeline=None):
         self.calls += 1
         return self.output
 
